@@ -1,0 +1,4 @@
+from tpu_breath_torch.cli import main
+
+if __name__ == "__main__":
+    main()
