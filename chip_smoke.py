@@ -6,17 +6,27 @@ Phases (each raises on failure; the script then exits non-zero and prints
 no result line):
   1. environment: torch/CUDA versions, the card's name and power limit;
      fails without a CUDA device;
-  2. build the CUDA kernels from csrc/ (nvcc, sm_90a) and print the time;
-  3. each kernel against its plain PyTorch version on the card, at the
-     serving shapes with B = 8 and B = 128 (golden wavs + seeded noise,
-     silence, an impulse, quantized plateaus);
+  2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel,
+     sm_90a) and print the time;
+  3. each kernel (A, B, B', B'', C) against its plain PyTorch version on the
+     card, at the main path's shapes with B = 8 and B = 128 (golden wavs +
+     seeded noise, silence, an impulse, quantized plateaus), with times and
+     the least time the card could take (bound);
   4. extract_features on the card for the golden wavs, against the golden
-     npz and against the port's CPU result;
+     npz and the port's CPU result; with fused_gt (kernel B'') against the
+     default path;
   5. serve: seeded CNN8 checkpoint, `predict --from-wav --archs cnn8` through
-     cli.main on cuda; every kernel's launch count must be > 0;
-  6. timings (CUDA events): kernels vs plain versions, extract_features and
-     one serve call, per micro-batch of 8 and per chunk of 128;
-  7. the last line: {"ok": true, "device": {...}}.
+     cli.main on cuda; kernels A, B, C must launch;
+  6. e2e on a seeded synthetic dataset (1,280 labelled clips -> 1,024 train /
+     256 val, 256 test) through cli.main on cuda: precompute with
+     TPU_BREATH_PALLAS_GT=1, train --archs cnn8,vgg --epochs 6 --predict
+     (full width, batch 512), train --archs cnn8 --epochs 7 --resume,
+     predict from the cache and predict --from-wav; kernels A, B, B'', C
+     must launch;
+  7. timings: extract_features and one serve call (B = 8 / 128), one train
+     step of CNN8 and of VGG at batch 512 (CUDA events), epoch wall time
+     and precompute clips/s;
+  8. the kernels JSON line, then the last line: {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -38,6 +48,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SR = 16000
 MICRO = 8
 CHUNK = 128
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 CUDA-core FLOP/s,
+# f64 tensor-core FLOP/s (the card's fastest float64 rate)
+HBM_BPS = 3.35e12
+F32_FLOPS = 67e12
+F64_FLOPS = 67e12
+# kernel -> max abs err against its plain version: the JAX package's test
+# tolerances (tests/test_pallas_epilogue.py), 1e-5 for the float64
+# variants, 5e-5 for the f32 one
+TOLS = {"B": 1e-5, "B'": 5e-5, "B''": 1e-5}
 
 
 def log(msg: str) -> None:
@@ -132,8 +151,45 @@ def kernel_inputs(y: torch.Tensor) -> dict:
                          -torch.inf).contiguous()
     fb = spectral.device_const(spectral.mel_matrix, SR, 512, 64,
                                device=y.device)
+    yp = torch.nn.functional.pad(y, (256, 256))
+    frames = spectral.frame_signal(yp, 512, 256, 1 + y.shape[-1] // 256
+                                   ).contiguous()
+    basis = spectral.device_const(spectral.framedft_basis, 512,
+                                  device=y.device)
     return {"p12": p12, "m12": m12, "p36": p36, "m36": m36, "mag": s512,
-            "fb": fb, "scores": scores}
+            "fb": fb, "scores": scores, "frames": frames, "basis": basis}
+
+
+def bounds(x: dict, rounds: int) -> dict:
+    """kernel -> (bound_ms, bound_by): the larger of the bytes each input
+    read once and each output written once over HBM_BPS, and the
+    operations over the peak rate of their type, at these inputs."""
+    b = x["mag"].shape[0]
+    f, t = x["mag"].shape[1:]
+    g = x["fb"].shape[0]
+    k = x["frames"].shape[-1]
+    nb = lambda *ts: sum(v.numel() * v.element_size() for v in ts)
+    gt_out = b * g * t * 4
+    epi_flops = 2 * b * g * f * t
+    work = {  # bytes, (flops, peak)
+        # A: one compare per input element (the histogram and median work
+        # is smaller still); two calls (bpo 12 and 36)
+        "A": (nb(x["p12"], x["m12"], x["p36"], x["m36"]) + 2 * b * 4,
+              (x["p12"].numel() + x["p36"].numel(), F32_FLOPS)),
+        "B": (nb(x["mag"], x["fb"]) + gt_out, (epi_flops, F64_FLOPS)),
+        "B'": (nb(x["mag"], x["fb"]) + gt_out, (epi_flops, F32_FLOPS)),
+        "B''": (nb(x["frames"], x["basis"], x["fb"]) + gt_out,
+                (2 * b * t * k * 2 * (f) + epi_flops, F64_FLOPS)),
+        # C: `rounds` passes of one compare per score
+        "C": (nb(x["scores"]) + b * rounds * 5,  # f32 vals + uint8 kept
+              (rounds * x["scores"].numel(), F32_FLOPS)),
+    }
+    out = {}
+    for name, (nbytes, (flops, peak)) in work.items():
+        t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / peak * 1e3
+        out[name] = ((t_bytes, "bytes") if t_bytes >= t_ops
+                     else (t_ops, "operations"))
+    return out
 
 
 def phase_kernels() -> dict:
@@ -141,14 +197,16 @@ def phase_kernels() -> dict:
     import scipy.signal
     from tpu_breath_torch.ops import dft
     from tpu_breath_torch.ops.cuda import (epilogue_kernel as ek,
+                                           gammatone_kernel as gk,
                                            peaks_kernel as pk,
                                            tuning_kernel as tk)
 
     rounds = SR // (SR // 10) + 2
-    res = {"A": {"err": 0.0}, "B": {"err": 0.0}, "C": {"err": 0.0}}
+    res = {k: {"err": 0.0} for k in ("A", "B", "B'", "B''", "C")}
     for b in (MICRO, CHUNK):
         y = torch.from_numpy(clip_set(b, seed=b)).cuda()
         x = kernel_inputs(y)
+        res["bound", b] = bounds(x, rounds)
         # kernel -> (kernel call, plain call) at this batch's main-path shapes
         calls = {
             "A": tuple(lambda f=f: (f(x["p12"], x["m12"], 12),
@@ -157,6 +215,12 @@ def phase_kernels() -> dict:
                                  tk.estimate_tuning_index_plain)),
             "B": tuple(lambda f=f: f(x["mag"], x["fb"])
                        for f in (ek.fused_epilogue, ek.fused_epilogue_plain)),
+            "B'": tuple(lambda f=f: f(x["mag"], x["fb"], plain=True)
+                        for f in (ek.fused_epilogue,
+                                  ek.fused_epilogue_plain)),
+            "B''": tuple(lambda f=f: f(x["frames"], x["basis"], x["fb"])
+                         for f in (gk.fused_gammatone,
+                                   gk.fused_gammatone_plain)),
             "C": tuple(lambda f=f: f(x["scores"], SR // 10, rounds)
                        for f in (pk.suppress_peaks, pk.suppress_peaks_plain)),
         }
@@ -166,10 +230,14 @@ def phase_kernels() -> dict:
             if not torch.equal(got, ref):
                 raise AssertionError(f"kernel A bpo {bpo} B {b}: "
                                      f"{got.tolist()} != {ref.tolist()}")
-        got, ref = out["B"]
-        err_b = float((got - ref).abs().max())
-        if not err_b <= 1e-5:
-            raise AssertionError(f"kernel B B {b}: max abs err {err_b}")
+        errs = {}
+        for k, tol in TOLS.items():
+            got, ref = out[k]
+            errs[k] = float((got - ref).abs().max())
+            if not errs[k] <= tol:
+                raise AssertionError(f"kernel {k} B {b}: max abs err "
+                                     f"{errs[k]} > {tol}")
+            res[k]["err"] = max(res[k]["err"], errs[k])
         (vals, kept), (rvals, rkept) = out["C"]
         err_c = float((vals - rvals).abs().max())
         if not torch.equal(kept, rkept) or not err_c <= 1e-5:
@@ -182,14 +250,16 @@ def phase_kernels() -> dict:
             if int(kept[i].sum()) != len(peaks):
                 raise AssertionError(f"kernel C clip {i}: "
                                      f"{int(kept[i].sum())} != {len(peaks)}")
-        res["B"]["err"] = max(res["B"]["err"], err_b)
         res["C"]["err"] = max(res["C"]["err"], err_c)
-        log(f"[kernels] B={b}: A exact at bpo 12/36, B err {err_b:.3g}, "
-            f"C kept exact (= scipy counts), vals err {err_c:.3g}")
+        log(f"[kernels] B={b}: A exact at bpo 12/36, "
+            + ", ".join(f"{k} err {errs[k]:.3g} (tol {t:g})"
+                        for k, t in TOLS.items())
+            + f", C kept exact (= scipy counts), vals err {err_c:.3g}")
         for k, (run, plain) in calls.items():
             res[k][b] = (cuda_ms(run), cuda_ms(plain))
+            bound, by = res["bound", b][k]
             log(f"[time] kernel {k} B={b}: {res[k][b][0]:.4f} ms, plain "
-                f"{res[k][b][1]:.4f} ms")
+                f"{res[k][b][1]:.4f} ms, bound {bound:.4f} ms ({by})")
     return res
 
 
@@ -220,6 +290,29 @@ def phase_features() -> None:
         f"rel {worst_rel:.3g} (bound 2e-2); gpu vs cpu: {d_cpu:.3g} abs "
         f"(bound 1e-4), scalars rel {s_cpu:.3g} (bound 1e-3)")
 
+    # kernel B'' in the graph against the default path (kernel B): the
+    # gammatone channel within 2e-4 (test_pallas_epilogue.py:108-111), every
+    # other channel and the scalars equal
+    y = torch.from_numpy(clip_set(CHUNK, seed=5)).cuda()
+    f0, s0 = extract_features(y, fused_gt=False)
+    f1, s1 = extract_features(y, fused_gt=True)
+    gi = SPEC.channel_order.index("gammatone")
+    others = [c for c in range(f0.shape[1]) if c != gi]
+    gt_err = float((f0[:, gi] - f1[:, gi]).abs().max())
+    same = (_nan_equal(f0[:, others], f1[:, others])
+            and _nan_equal(s0, s1))
+    if not (gt_err <= 2e-4 and same):
+        raise AssertionError(f"fused_gt features: gammatone err {gt_err}, "
+                             f"other channels and scalars equal: {same}")
+    log(f"[features] fused_gt (B'') vs default (B), B={CHUNK}: gammatone "
+        f"max abs {gt_err:.3g} (bound 2e-4); other channels and scalars "
+        f"equal")
+
+
+def _nan_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
+
 
 def write_wav(path: str, samples: np.ndarray) -> None:
     with wave.open(path, "wb") as w:
@@ -239,8 +332,6 @@ def read_wav(path: str) -> np.ndarray:
 def phase_serve(tmp: str) -> dict:
     from tpu_breath_torch import cli, ensemble
     from tpu_breath_torch.models import registry
-    from tpu_breath_torch.ops.cuda import (epilogue_kernel, peaks_kernel,
-                                           tuning_kernel)
     from tpu_breath_torch.train import checkpoint as ckpt_lib
 
     model = registry.build("cnn8", 36, seed=0)
@@ -256,19 +347,17 @@ def phase_serve(tmp: str) -> dict:
         write_wav(paths[-1], c)
     argv = ["predict", "--from-wav", *paths, "--archs", "cnn8",
             "--out-root", tmp, "--device", "cuda"]
-    mods = (tuning_kernel, epilogue_kernel, peaks_kernel)
-    for m in mods:
-        m.LAUNCHES = 0
+    reset_launches()
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         cli.main(argv)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    launches = {m.__name__.rsplit(".", 1)[-1]: m.LAUNCHES for m in mods}
+    launches = read_launches()
     log(f"[serve] predict --from-wav ({len(paths)} clips) in {serve_s:.2f} s "
         f"(first call, includes model load); launches {launches}")
-    if min(launches.values()) <= 0:
+    if min(launches[k] for k in ("A", "B", "C")) <= 0:
         raise AssertionError(f"a kernel was not launched: {launches}")
     lines = [l.split("\t") for l in out.getvalue().splitlines() if "\t" in l]
     probs = np.array([float(p) for _, _, p in lines])
@@ -291,15 +380,198 @@ def phase_serve(tmp: str) -> dict:
     return {"launches": launches, "ckpt": ckpt, "wavs": wavs}
 
 
-def phase_times(serve: dict) -> None:
-    from tpu_breath_torch import ensemble
+def launch_counters() -> dict:
+    """kernel -> (wrapper module, name of its launch counter)."""
+    from tpu_breath_torch.ops.cuda import (epilogue_kernel, gammatone_kernel,
+                                           peaks_kernel, tuning_kernel)
+    return {"A": (tuning_kernel, "LAUNCHES"),
+            "B": (epilogue_kernel, "LAUNCHES"),
+            "B'": (epilogue_kernel, "LAUNCHES_F32"),
+            "B''": (gammatone_kernel, "LAUNCHES"),
+            "C": (peaks_kernel, "LAUNCHES")}
+
+
+def reset_launches() -> None:
+    for mod, name in launch_counters().values():
+        setattr(mod, name, 0)
+
+
+def read_launches() -> dict:
+    return {k: getattr(mod, name)
+            for k, (mod, name) in launch_counters().items()}
+
+
+def make_dataset(root: str, n_train: int = 1280, n_test: int = 256,
+                 seed: int = 11) -> list[str]:
+    """A seeded synthetic dataset in the repo's layout: train.csv (ID,
+    Target), test.csv (ID), train/x_NNNN.wav for ID x_[EI]_NNNN, test/
+    x_NNNN.wav. Label rule the models can learn: E clips have a rising
+    amplitude envelope, I clips a falling one; smoothed noise of varied
+    colour and loudness, never silent. Returns the test wav paths."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(SR) / SR
+    for d in ("train", "test"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    train_rows, test_paths = [], []
+    for i in range(n_train + n_test):
+        rising = bool(rng.integers(2))
+        ramp = t if rising else 1.0 - t
+        env = 0.1 + 0.9 * ramp ** rng.uniform(0.7, 1.5)
+        k = int(rng.integers(1, 9))
+        noise = np.convolve(rng.standard_normal(SR + k - 1),
+                            np.ones(k) / np.sqrt(k), mode="valid")
+        y = 10.0 ** rng.uniform(-1.6, -0.7) * env * noise
+        if i < n_train:
+            train_rows.append((f"x_{'E' if rising else 'I'}_{i:04d}",
+                               "E" if rising else "I"))
+            write_wav(os.path.join(root, "train", f"x_{i:04d}.wav"), y)
+        else:
+            test_paths.append(os.path.join(root, "test", f"x_{i:04d}.wav"))
+            write_wav(test_paths[-1], y)
+    with open(os.path.join(root, "train.csv"), "w") as f:
+        f.write("ID,Target\n" + "".join(f"{a},{b}\n" for a, b in train_rows))
+    with open(os.path.join(root, "test.csv"), "w") as f:
+        f.write("ID\n" + "".join(os.path.basename(p)[:-4] + "\n"
+                                 for p in test_paths))
+    return test_paths
+
+
+def run_cli(argv: list[str]) -> tuple[str, float]:
+    """cli.main(argv) with its stdout captured and echoed; (stdout, s)."""
+    from tpu_breath_torch import cli
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    for line in out.getvalue().splitlines():
+        if "\t" not in line:
+            log(f"[e2e]   {line}")
+    return out.getvalue(), dt
+
+
+def read_history(out_root: str, arch: str) -> list[dict]:
+    from tpu_breath_torch import cli
+
+    with open(os.path.join(cli.ckpt_dir(out_root, arch),
+                           "history.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def read_submission(path: str, n: int) -> list[list[str]]:
+    with open(path) as f:
+        rows = [line.strip().split(",") for line in f]
+    if rows[0] != ["ID", "Target"] or len(rows) != n + 1 or any(
+            r[1] not in ("E", "I") for r in rows[1:]):
+        raise AssertionError(f"bad submission {path}: {rows[:3]}, "
+                             f"{len(rows)} lines")
+    return rows[1:]
+
+
+def phase_e2e(tmp: str) -> dict:
+    """precompute (B'') -> train cnn8,vgg -> resume -> predict (cache and
+    --from-wav) through cli.main on cuda, at full width and the configs'
+    batch 512."""
+    from tpu_breath_torch import cli, ensemble
+    from tpu_breath_torch.config import Paths
+    from tpu_breath_torch.data import dataset as ds
+    from tpu_breath_torch.train import checkpoint as ckpt_lib
+
+    root, out_root = os.path.join(tmp, "input"), os.path.join(tmp, "e2e")
+    test_paths = make_dataset(root)
+    common = ["--root", root, "--out-root", out_root, "--device", "cuda"]
+    res = {}
+    reset_launches()
+    os.environ["TPU_BREATH_PALLAS_GT"] = "1"
+    try:
+        out, dt = run_cli(["precompute", *common])
+    finally:
+        del os.environ["TPU_BREATH_PALLAS_GT"]
+    res["precompute_s"] = dt
+    res["precompute_line"] = next(l for l in out.splitlines()
+                                  if l.startswith("features:"))
+    after_pre = read_launches()
+    if after_pre["B''"] <= 0 or after_pre["B"] != 0:
+        raise AssertionError(f"precompute with TPU_BREATH_PALLAS_GT=1 did "
+                             f"not take kernel B'': {after_pre}")
+
+    _, res["train_s"] = run_cli(["train", "--archs", "cnn8,vgg", "--epochs",
+                                 "6", "--predict", *common])
+    for arch in ("cnn8", "vgg"):
+        hist = read_history(out_root, arch)
+        if len(hist) != 6 or not all(
+                np.isfinite([r["train_loss"], r["val_loss"]]).all()
+                for r in hist):
+            raise AssertionError(f"{arch} history: {hist}")
+        if ckpt_lib.latest_checkpoint(cli.ckpt_dir(out_root, arch)) is None:
+            raise AssertionError(f"{arch}: no checkpoint")
+        res[arch] = hist
+    sub = os.path.join(out_root, "submissions", "submission.csv")
+    read_submission(sub, len(test_paths))
+
+    out, _ = run_cli(["train", "--archs", "cnn8", "--epochs", "7",
+                      "--resume", *common])
+    resumed = read_history(out_root, "cnn8")
+    if ("resumed from epoch" not in out or not resumed
+            or resumed[0]["epoch"] <= 1 or resumed[-1]["epoch"] != 7):
+        raise AssertionError(f"resume did not continue: {resumed}")
+    res["resumed_epochs"] = [r["epoch"] for r in resumed]
+
+    os.remove(sub)
+    run_cli(["predict", "--archs", "cnn8,vgg", *common])
+    read_submission(sub, len(test_paths))
+    served = test_paths[:16]
+    out, _ = run_cli(["predict", "--from-wav", *served, "--archs",
+                      "cnn8,vgg", *common])
+    res["launches"] = read_launches()
+    if min(v for k, v in res["launches"].items() if k != "B'") <= 0:
+        raise AssertionError(f"a kernel of the path was not launched: "
+                             f"{res['launches']}")
+    p_wav = np.array([float(l.split("\t")[2]) for l in out.splitlines()
+                      if "\t" in l])
+
+    # the outputs against the CPU: the ensemble on the cached test features
+    # (bf16 autocast on the card, f32 on the CPU), and served clips vs the
+    # cache (kernel B vs B'' gammatone, bf16)
+    store = ds.FeatureStore.load_cache(Paths(root, out_root).feature_cache)
+    ids = [os.path.basename(p)[:-4] for p in served]
+    te = store.subset(ids)
+    ckpts, scores = cli._load_ensemble_ckpts(out_root, ["cnn8", "vgg"])
+    p_gpu, p_cpu = (ensemble.weighted_ensemble(
+        ckpts, ["cnn8", "vgg"], scores, te.features, te.scalars, 36,
+        device=d) for d in ("cuda", "cpu"))
+    gap, gap_wav = (float(np.max(np.abs(p_gpu - p))) for p in (p_cpu, p_wav))
+    if not (np.isfinite(p_gpu).all() and len(p_wav) == len(served)
+            and gap <= 2e-2 and gap_wav <= 2e-2):
+        raise AssertionError(f"ensemble: gpu {p_gpu}, cpu {p_cpu}, "
+                             f"from wav {p_wav}")
+    log(f"[e2e] launches over the path {res['launches']}; precompute "
+        f"alone {after_pre}; resumed epochs {res['resumed_epochs']}; "
+        f"ensemble on {len(served)} test clips: |gpu (bf16) - cpu (f32)| "
+        f"{gap:.3g}, |from wav - from cache| {gap_wav:.3g} (bounds 2e-2)")
+    for arch in ("cnn8", "vgg"):
+        log(f"[e2e] {arch} val acc by epoch "
+            f"{[round(r['val_acc'], 4) for r in res[arch]]}")
+    return res
+
+
+def phase_times(serve: dict, e2e: dict) -> None:
+    from tpu_breath_torch import augment, ensemble
+    from tpu_breath_torch.config import CNN8_TRAIN, VGG_TRAIN
     from tpu_breath_torch.features import extract_features
+    from tpu_breath_torch.models import registry
+    from tpu_breath_torch.train import loop
 
     for b in (MICRO, CHUNK):
         y = torch.from_numpy(clip_set(b, seed=b)).cuda()
-        ms = cuda_ms(lambda: extract_features(y), iters=5, warmup=2)
-        log(f"[time] extract_features B={b}: {ms:.3f} ms "
-            f"({ms / b:.3f} ms/clip)")
+        # alternating order: default (B), fused (B''), fused, default
+        ms = [cuda_ms(lambda: extract_features(y, fused_gt=fused), iters=5,
+                      warmup=2) for fused in (False, True, True, False)]
+        log(f"[time] extract_features B={b}: {ms[0]:.3f} ms "
+            f"({ms[0] / b:.3f} ms/clip); default, fused_gt, fused_gt, "
+            f"default: {', '.join(f'{m:.3f}' for m in ms)} ms")
     wavs = serve["wavs"][:MICRO]
     ensemble.serve_from_wav([serve["ckpt"]], ["cnn8"], [0.78], wavs,
                             device="cuda")
@@ -311,6 +583,32 @@ def phase_times(serve: dict) -> None:
     log(f"[time] serve_from_wav one micro-batch of {MICRO} (host clock, "
         f"model load included): {(time.perf_counter() - t0) * 1e3:.2f} ms")
 
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for arch, cfg in (("cnn8", CNN8_TRAIN), ("vgg", VGG_TRAIN)):
+        b = cfg.batch_size
+        model = registry.build(arch, 36).cuda()
+        opt = loop.make_optimizer(model, cfg)
+        batch = augment.Batch(
+            torch.randn(b, 9, 128, 63, generator=gen, device="cuda"),
+            torch.randn(b, 36, generator=gen, device="cuda"),
+            (torch.rand(b, generator=gen, device="cuda") < 0.5).float())
+        draws = augment.draw(gen, b, 128, 63, cfg.cutmix_alpha,
+                             cfg.mixup_alpha, "cuda")
+        plain_ms = cuda_ms(lambda: loop.train_step(model, opt, 1e-4, batch,
+                                                   cfg), iters=10)
+        aug_ms = cuda_ms(lambda: loop.train_step(model, opt, 1e-4, batch,
+                                                 cfg, draws), iters=10)
+        secs = [r["sec"] for r in e2e[arch][1:]]
+        log(f"[time] {arch} train step, batch {b} (CUDA events, mean of "
+            f"10): {plain_ms:.2f} ms without augmentation, {aug_ms:.2f} ms "
+            f"with; e2e epoch wall time (2 steps + val of 256) median "
+            f"{np.median(secs):.3f} s over epochs 2-6")
+        del model, opt, batch
+    log(f"[time] precompute, 1,536 clips (TPU_BREATH_PALLAS_GT=1): "
+        f"{e2e['precompute_line']}; whole command {e2e['precompute_s']:.2f} "
+        f"s with decode; train cnn8,vgg 6 epochs + predict "
+        f"{e2e['train_s']:.2f} s")
+
 
 def main() -> int:
     env = phase_env()
@@ -319,21 +617,31 @@ def main() -> int:
     phase_features()
     with tempfile.TemporaryDirectory() as tmp:
         serve = phase_serve(tmp)
-        phase_times(serve)
+        e2e = phase_e2e(tmp)
+        phase_times(serve, e2e)
     src = "tpu_breath_torch/csrc"
+    pallas = "tpu_breath/ops/pallas"
     table = [
-        ("tuning_index", "tuning_kernel", "tuning_kernel.cu",
-         "tpu_breath/ops/pallas/tuning_kernel.py:125", "A"),
-        ("fused_epilogue", "epilogue_kernel", "epilogue_kernel.cu",
-         "tpu_breath/ops/pallas/epilogue_kernel.py:160", "B"),
-        ("suppress_peaks", "peaks_kernel", "peaks_kernel.cu",
-         "tpu_breath/ops/pallas/peaks_kernel.py:78", "C"),
+        ("A", "tuning_index", "tuning_kernel.cu", "tuning_kernel.py:125"),
+        ("B", "fused_epilogue", "epilogue_kernel.cu",
+         "epilogue_kernel.py:160"),
+        ("B'", "fused_epilogue_f32", "epilogue_kernel.cu",
+         "epilogue_kernel.py:160"),
+        ("B''", "fused_gammatone", "gammatone_kernel.cu",
+         "epilogue_kernel.py:126"),
+        ("C", "suppress_peaks", "peaks_kernel.cu", "peaks_kernel.py:78"),
     ]
+    # times at the precompute chunk (B = 128); no single PyTorch call
+    # computes any of these functions, so library_ms is null
     kernels = [{"name": name, "route": "cuda", "source": f"{src}/{f}",
-                "replaces": rep, "launches": serve["launches"][mod],
-                "max_abs_err": ker[k]["err"], "ms": ker[k][MICRO][0],
-                "plain_ms": ker[k][MICRO][1]}
-               for name, mod, f, rep, k in table]
+                "replaces": f"{pallas}/{rep}",
+                "launches": e2e["launches"][k],
+                "max_abs_err": ker[k]["err"], "ms": ker[k][CHUNK][0],
+                "plain_ms": ker[k][CHUNK][1],
+                "bound_ms": ker["bound", CHUNK][k][0],
+                "bound_by": ker["bound", CHUNK][k][1], "library_ms": None,
+                "batch": CHUNK}
+               for k, name, f, rep in table]
     print(env["smi"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,159 @@
+"""The port's command line on the CPU at a tiny size: precompute -> e2e
+(train cnn8,vgg + predict) -> resume -> predict from the cache, from npz
+and from wavs, on a seeded synthetic dataset (24 labelled clips, 8 test
+clips), plus device handling and the bare run."""
+import csv
+import json
+import os
+import wave
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_breath_torch import cli
+from tpu_breath_torch.data import dataset as ds
+from tpu_breath_torch.train import checkpoint as ckpt_lib
+
+N_TRAIN, N_TEST = 24, 8
+
+
+def _write_wav(path, y):
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes((np.clip(y, -1, 1) * 32767).astype("<i2").tobytes())
+
+
+def _dataset(root):
+    """Rising (E) or falling (I) envelopes on seeded noise, in the repo's
+    layout: train.csv / test.csv, train/x_NNNN.wav for x_[EI]_NNNN."""
+    rng = np.random.default_rng(12)
+    t = np.arange(16000) / 16000
+    (root / "train").mkdir(parents=True)
+    (root / "test").mkdir()
+    rows = []
+    for i in range(N_TRAIN + N_TEST):
+        e = bool(rng.integers(2))
+        y = 0.1 * (0.1 + 0.9 * (t if e else 1 - t)) * rng.standard_normal(
+            16000)
+        if i < N_TRAIN:
+            rows.append(f"x_{'E' if e else 'I'}_{i:04d},{'E' if e else 'I'}")
+            _write_wav(root / "train" / f"x_{i:04d}.wav", y)
+        else:
+            _write_wav(root / "test" / f"x_{i:04d}.wav", y)
+    (root / "train.csv").write_text("ID,Target\n" + "\n".join(rows) + "\n")
+    (root / "test.csv").write_text("ID\n" + "".join(
+        f"x_{i:04d}\n" for i in range(N_TRAIN, N_TRAIN + N_TEST)))
+
+
+def _submission(path):
+    with open(path) as f:
+        return list(csv.reader(f))
+
+
+@pytest.fixture(scope="module")
+def e2e(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("cli")
+    root, out = tmp / "input", tmp / "out"
+    _dataset(root)
+    common = ["--root", str(root), "--out-root", str(out), "--device", "cpu"]
+    cli.main(["precompute", "--npz", *common])
+    cli.main(["e2e", "--epochs", "1", "--batch-size", "8", *common])
+    return {"root": root, "out": out, "common": common}
+
+
+def test_precompute_writes_cache_and_npz(e2e):
+    cache = os.path.join(e2e["root"], "feature_cache_torch")
+    assert ds.FeatureStore.cache_exists(cache)
+    store = ds.FeatureStore.load_cache(cache)
+    assert len(store.ids) == N_TRAIN + N_TEST
+    assert store.features.shape[1:] == (9, 128, 63)
+    assert np.isfinite(store.features).all()
+    assert len(os.listdir(e2e["root"] / "precomputed")) == N_TRAIN + N_TEST
+
+
+def test_e2e_writes_checkpoints_history_and_submission(e2e):
+    for arch in ("cnn8", "vgg"):
+        d = cli.ckpt_dir(str(e2e["out"]), arch)
+        path = ckpt_lib.latest_checkpoint(d)
+        assert path is not None
+        assert set(os.listdir(path)) == {"model.pt", "train_state.pt",
+                                         "meta.json"}
+        with open(os.path.join(d, "history.jsonl")) as f:
+            hist = [json.loads(line) for line in f]
+        assert [r["epoch"] for r in hist] == [1]
+        assert np.isfinite(hist[0]["train_loss"])
+    rows = _submission(e2e["out"] / "submissions" / "submission.csv")
+    assert rows[0] == ["ID", "Target"]
+    assert [r[0] for r in rows[1:]] == [f"x_{i:04d}" for i in
+                                        range(N_TRAIN, N_TRAIN + N_TEST)]
+    assert all(r[1] in ("E", "I") for r in rows[1:])
+
+
+def test_resume_then_predict_from_cache_npz_and_wav(e2e, capsys):
+    common = e2e["common"]
+    cli.main(["train", "--archs", "cnn8", "--epochs", "2", "--batch-size",
+              "8", "--resume", *common])
+    assert "resumed from epoch 1" in capsys.readouterr().out
+    with open(os.path.join(cli.ckpt_dir(str(e2e["out"]), "cnn8"),
+                           "history.jsonl")) as f:
+        assert [json.loads(line)["epoch"] for line in f] == [2]
+
+    sub = e2e["out"] / "submissions" / "submission.csv"
+    cli.main(["predict", *common])
+    from_cache = _submission(sub)
+    cli.main(["predict", "--from-npz", str(e2e["root"] / "precomputed"),
+              *common])
+    assert _submission(sub) == from_cache
+
+    wavs = [str(e2e["root"] / "test" / f"x_{i:04d}.wav")
+            for i in range(N_TRAIN, N_TRAIN + 3)]
+    capsys.readouterr()
+    cli.main(["predict", "--from-wav", *wavs, *common])
+    lines = [l.split("\t") for l in capsys.readouterr().out.splitlines()
+             if "\t" in l]
+    assert [l[0] for l in lines] == wavs
+    # the same clips' labels as from the cache
+    assert [l[1] for l in lines] == [r[1] for r in from_cache[1:4]]
+
+
+def test_train_from_npz(e2e, tmp_path):
+    out = tmp_path / "npz_run"
+    cli.main(["train", "--archs", "cnn8", "--epochs", "1", "--batch-size",
+              "8", "--from-npz", str(e2e["root"] / "precomputed"),
+              "--root", str(e2e["root"]), "--out-root", str(out),
+              "--device", "cpu"])
+    assert ckpt_lib.latest_checkpoint(cli.ckpt_dir(str(out), "cnn8"))
+
+
+@pytest.mark.parametrize("argv", [["precompute"], ["train"], ["e2e"],
+                                  ["predict"]])
+def test_cuda_is_the_default_and_needs_a_card(argv, monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cli.build_parser().parse_args(argv).device == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main([*argv, "--root", str(tmp_path), "--out-root",
+                  str(tmp_path)])
+
+
+def test_bare_run_is_train_and_predict(monkeypatch):
+    seen = {}
+    monkeypatch.setattr(cli, "cmd_train", lambda ns: seen.update(train=ns))
+    monkeypatch.setattr(cli, "cmd_precompute",
+                        lambda ns: seen.update(precompute=ns))
+    cli.main([])
+    ns = seen["train"]
+    assert (ns.archs, ns.predict, ns.device, ns.epochs) == (
+        "cnn8,vgg", True, "cuda", 0)
+    cli.main(["--precompute"])
+    assert seen["precompute"].chunk == 128
+
+
+def test_help_names_what_is_not_ported(capsys):
+    with pytest.raises(SystemExit):
+        cli.main(["train", "--help"])
+    out = " ".join(capsys.readouterr().out.split())
+    assert "--fused, --mesh, --scan, --epoch-scan and --profile" in out
+    assert "--device" in out

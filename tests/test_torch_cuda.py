@@ -61,6 +61,83 @@ def test_epilogue_kernel_within_1e5(clips):
     assert float((got - ref).abs().max()) <= 1e-5
 
 
+def test_epilogue_f32_variant_within_5e5(clips):
+    """Kernel B' (plain=True) against its plain version (f32 matmul, TF32
+    off): the JAX test's 5e-5."""
+    from tpu_breath_torch.ops import spectral
+    from tpu_breath_torch.ops.cuda import epilogue_kernel as ek
+
+    spectral.disable_tf32()
+    mag = spectral.stft_mag_cr(clips, 512, 256).contiguous()
+    fb = spectral.device_const(spectral.mel_matrix, 16000, 512, 64,
+                               device=clips.device)
+    before = ek.LAUNCHES_F32
+    got = ek.fused_epilogue(mag, fb, plain=True)
+    torch.cuda.synchronize()
+    assert ek.LAUNCHES_F32 == before + 1
+    ref = ek.fused_epilogue_plain(mag, fb, plain=True)
+    assert float((got - ref).abs().max()) <= 5e-5
+
+
+def test_gammatone_kernel_within_1e5(clips):
+    """Kernel B'' against its plain version (float64 matmul, |S| rounded
+    once, kernel B's plain epilogue): the JAX test's 1e-5."""
+    from tpu_breath_torch.ops import spectral
+    from tpu_breath_torch.ops.cuda import gammatone_kernel as gk
+
+    yp = torch.nn.functional.pad(clips, (256, 256))
+    frames = spectral.frame_signal(yp, 512, 256, 63).contiguous()
+    basis = spectral.device_const(spectral.framedft_basis, 512,
+                                  device=clips.device)
+    fb = spectral.device_const(spectral.mel_matrix, 16000, 512, 64,
+                               device=clips.device)
+    got = gk.fused_gammatone(frames, basis, fb)
+    torch.cuda.synchronize()
+    ref = gk.fused_gammatone_plain(frames, basis, fb)
+    assert got.shape == (clips.shape[0], 64, 63)
+    assert float((got - ref).abs().max()) <= 1e-5
+
+
+def test_fused_gt_features_on_card(clips):
+    """extract_features(fused_gt=True) on the card: the gammatone channel
+    within 2e-4 of the default path's, the rest equal."""
+    from tpu_breath_torch.features import extract_features
+
+    f0, s0 = extract_features(clips, fused_gt=False)
+    f1, s1 = extract_features(clips, fused_gt=True)
+    assert float((f0[:, 1] - f1[:, 1]).abs().max()) <= 2e-4  # gammatone
+    keep = [0] + list(range(2, 9))
+    assert torch.equal(f0[:, keep].nan_to_num(), f1[:, keep].nan_to_num())
+    assert torch.equal(s0.nan_to_num(), s1.nan_to_num())
+
+
+def test_fit_on_card_runs_and_resumes(clips, tmp_path):
+    """A tiny fit on the card (CNN8 and VGG, 2 epochs, augmentation from
+    epoch 2): finite losses, a checkpoint with the optimizer state, and a
+    resumed run that continues."""
+    from tpu_breath_torch.config import TrainCfg
+    from tpu_breath_torch.models import registry
+    from tpu_breath_torch.train import loop
+
+    rng = np.random.default_rng(3)
+    y = (np.arange(32) % 2).astype(np.float32)
+    f = rng.standard_normal((32, 9, 32, 16)).astype(np.float32) + y[
+        :, None, None, None]
+    s = rng.standard_normal((32, 36)).astype(np.float32)
+    cfg = TrainCfg(num_epochs=2, batch_size=8, eval_batch_size=16,
+                   warmup_epochs=1, patience=9)
+    for arch in ("cnn8", "vgg"):
+        d = str(tmp_path / arch)
+        res = loop.fit(registry.build(arch, 36), (f, s), (f, s), y, y, cfg,
+                       save_dir=d, log_fn=lambda *_: None)
+        assert all(np.isfinite(r["train_loss"]) for r in res.history)
+        longer = TrainCfg(**{**cfg.__dict__, "num_epochs": 3})
+        again = loop.fit(registry.build(arch, 36), (f, s), (f, s), y, y,
+                         longer, save_dir=d, resume=True,
+                         log_fn=lambda *_: None)
+        assert again.history and again.history[-1]["epoch"] == 3
+
+
 def test_peaks_kernel_exact(clips):
     from tpu_breath_torch.ops import dft, peaks
     from tpu_breath_torch.ops.cuda import peaks_kernel as pk

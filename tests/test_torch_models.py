@@ -1,18 +1,25 @@
-"""CNN8 of the PyTorch port against Flax CNN8 through cnn8_from_flax:
-parameter count, f32 logits (<= 1e-4), bf16 logits (bound measured below),
-BatchNorm mapping, seeded init and the registry."""
+"""CNN8 and VGG of the PyTorch port against Flax through cnn8_from_flax /
+vgg_from_flax: parameter counts, f32 logits (<= 1e-4), bf16 logits (bound
+measured below), BatchNorm mapping and training statistics, seeded init and
+the registry."""
 import numpy as np
 import pytest
 import jax
 import jax.numpy as jnp
 import torch
 
+import flax.linen as flax_nn
+
 from tpu_breath.models.cnn8 import CNN8 as FlaxCNN8
+from tpu_breath.models.vgg import VGG as FlaxVGG
 from tpu_breath_torch.models import registry
 from tpu_breath_torch.models.cnn8 import CNN8
-from tpu_breath_torch.models.convert import cnn8_from_flax
+from tpu_breath_torch.models.convert import cnn8_from_flax, vgg_from_flax
+from tpu_breath_torch.models.layers import BatchNorm
+from tpu_breath_torch.models.vgg import VGG
 
 N_PARAMS = 2_433_473
+N_PARAMS_VGG = 8_145_985
 
 
 @pytest.fixture(scope="module")
@@ -114,6 +121,129 @@ def test_eval_deterministic_train_stochastic():
 
 
 def test_registry():
-    assert set(registry.ARCHS) == {"cnn8"}
+    assert set(registry.ARCHS) == {"cnn8", "vgg"}
+    assert isinstance(registry.build("vgg", 36), VGG)
     with pytest.raises(ValueError):
-        registry.build("vgg", 36)
+        registry.build("resnet", 36)
+
+
+@pytest.fixture(scope="module")
+def flax_vgg_vars():
+    """Seeded Flax VGG init, batch_stats moved off (0, 1)."""
+    rng = np.random.default_rng(1)
+    f = rng.standard_normal((3, 9, 128, 63)).astype(np.float32)
+    s = rng.standard_normal((3, 36)).astype(np.float32)
+    v = FlaxVGG(num_scalar_features=36, dtype=jnp.float32).init(
+        {"params": jax.random.PRNGKey(1)}, jnp.asarray(f), jnp.asarray(s),
+        train=False)
+    params = jax.tree.map(np.asarray, v["params"])
+    stats = jax.tree.map(
+        lambda x: np.asarray(x) + 0.2 * rng.random(x.shape).astype(np.float32),
+        v["batch_stats"])
+    return params, stats, f, s
+
+
+def _port_vgg(params, stats) -> VGG:
+    model = VGG(num_scalar_features=36)
+    model.load_state_dict(vgg_from_flax(params, stats))
+    return model.eval()
+
+
+def test_vgg_param_count_matches_flax(flax_vgg_vars):
+    params = flax_vgg_vars[0]
+    assert sum(x.size for x in jax.tree.leaves(params)) == N_PARAMS_VGG
+    model = registry.build("vgg", 36)
+    assert sum(p.numel() for p in model.parameters()) == N_PARAMS_VGG
+
+
+def test_vgg_f32_logits_match_flax(flax_vgg_vars):
+    """f32 eval logits within 1e-4 (measured 5e-8)."""
+    params, stats, f, s = flax_vgg_vars
+    ref = np.asarray(FlaxVGG(num_scalar_features=36, dtype=jnp.float32)
+                     .apply({"params": params, "batch_stats": stats},
+                            jnp.asarray(f), jnp.asarray(s), train=False))
+    with torch.no_grad():
+        got = _port_vgg(params, stats)(torch.from_numpy(f),
+                                       torch.from_numpy(s))
+    assert got.shape == (3,) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=0)
+
+
+def test_vgg_bf16_logits_match_flax(flax_vgg_vars):
+    """Flax bf16 activations vs the port under bf16 autocast (on the CPU
+    here; the card autocasts by itself). Measured gap 8.5e-4, about Flax's
+    own bf16-vs-f32 gap (6.6e-4): bound 2e-2 as for CNN8. The residual's
+    BatchNorm runs in f32, as Flax's dtype=float32 one does."""
+    params, stats, f, s = flax_vgg_vars
+    ref = np.asarray(FlaxVGG(num_scalar_features=36)
+                     .apply({"params": params, "batch_stats": stats},
+                            jnp.asarray(f), jnp.asarray(s), train=False))
+    model = _port_vgg(params, stats)
+    seen = []
+    model.res_conv.register_forward_hook(lambda m, i, o: seen.append(o.dtype))
+    model.res_bn.register_forward_hook(lambda m, i, o: seen.append(o.dtype))
+    with torch.no_grad(), torch.autocast("cpu", dtype=torch.bfloat16):
+        got = model(torch.from_numpy(f), torch.from_numpy(s))
+    assert seen == [torch.bfloat16, torch.float32]
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, atol=2e-2, rtol=0)
+
+
+def test_vgg_converter_covers_every_tensor(flax_vgg_vars):
+    params, stats, _, _ = flax_vgg_vars
+    sd = vgg_from_flax(params, stats)
+    assert set(sd) == set(VGG(36).state_dict())
+    np.testing.assert_array_equal(sd["res_conv.weight"].numpy(),
+                                  params["Conv_0"]["kernel"].transpose(
+                                      3, 2, 0, 1))
+    np.testing.assert_array_equal(sd["convs.11.bn.running_var"].numpy(),
+                                  stats["ConvBlock_11"]["BatchNorm_0"]["var"])
+    assert "convs.0.conv.bias" not in sd  # bias-free convs
+
+
+def test_vgg_shapes_ceil_pools_and_stride():
+    """Block 1's stride-2 conv and the ceil-mode pools: 128x63 -> 64x32 ->
+    32x16 -> 16x8 at block 4."""
+    model = registry.build("vgg", 36).eval()
+    seen = []
+    model.convs[9].register_forward_hook(
+        lambda m, i, o: seen.append(tuple(o.shape)))
+    with torch.no_grad():
+        model(torch.zeros(2, 9, 128, 63), torch.zeros(2, 36))
+    assert seen == [(2, 512, 16, 8)]
+
+
+@pytest.mark.parametrize("shape", [(16, 5), (16, 5, 4, 3)])
+def test_batchnorm_trains_as_flax(shape):
+    """One training-mode call: output and running statistics as Flax's
+    BatchNorm(momentum 0.9, eps 1e-5) gives them, running var from the
+    biased batch variance (torch's BatchNorm would store the unbiased one),
+    within 1e-6 relative."""
+    rng = np.random.default_rng(2)
+    x = (rng.standard_normal(shape) * 3 + 1).astype(np.float32)
+    c = shape[1]
+    mean0 = rng.standard_normal(c).astype(np.float32)
+    var0 = (rng.random(c) + 0.5).astype(np.float32)
+    scale = rng.standard_normal(c).astype(np.float32)
+    bias = rng.standard_normal(c).astype(np.float32)
+    xj = np.moveaxis(x, 1, -1)  # Flax normalises the last axis
+    y_j, mut = flax_nn.BatchNorm(use_running_average=False, momentum=0.9,
+                                 epsilon=1e-5).apply(
+        {"params": {"scale": scale, "bias": bias},
+         "batch_stats": {"mean": mean0, "var": var0}},
+        jnp.asarray(xj), mutable=["batch_stats"])
+    bn = BatchNorm(c).train()
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(scale))
+        bn.bias.copy_(torch.from_numpy(bias))
+        bn.running_mean.copy_(torch.from_numpy(mean0))
+        bn.running_var.copy_(torch.from_numpy(var0))
+        y_t = bn(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(y_t, np.moveaxis(np.asarray(y_j), -1, 1),
+                               rtol=1e-5, atol=1e-5)
+    stats = mut["batch_stats"]
+    np.testing.assert_allclose(bn.running_mean.numpy(),
+                               np.asarray(stats["mean"]), rtol=1e-6,
+                               atol=1e-7)
+    np.testing.assert_allclose(bn.running_var.numpy(),
+                               np.asarray(stats["var"]), rtol=1e-6)

@@ -1,39 +1,198 @@
-"""Command line of the port (counterpart of tpu_breath/cli.py).
+"""Command line of the port (counterpart of tpu_breath/cli.py):
+precompute | train | e2e | predict, and the bare run (train + predict).
 
-Only the serving path is ported:
+    python -m tpu_breath_torch precompute [--npz] [--chunk 128]
+    python -m tpu_breath_torch train [--archs cnn8,vgg] [--epochs N]
+        [--predict] [--resume] [--seed S] [--batch-size B] [--f32]
+        [--from-npz DIR]
+    python -m tpu_breath_torch e2e ...            # train --predict
+    python -m tpu_breath_torch predict [--archs cnn8,vgg] [--from-npz DIR]
+    python -m tpu_breath_torch predict --from-wav a.wav b.wav [--archs ...]
+    python -m tpu_breath_torch                    # train + predict
 
-    python -m tpu_breath_torch predict --from-wav a.wav b.wav --archs cnn8 \
-        [--out-root DIR] [--device cuda|cpu]
-
-Checkpoints are read from <out-root>/checkpoints_torch/<arch>/ and the
-predictions written to <out-root>/submissions/from_wav_predictions.csv.
+Every command takes --root (inputs: train.csv, test.csv, train/, test/),
+--out-root and --device cuda|cpu (default cuda, which demands a card).
+Outputs: the feature cache <root>/feature_cache_torch/, checkpoints and
+history.jsonl under <out-root>/checkpoints_torch/<arch>/, predictions
+under <out-root>/submissions/. TPU_BREATH_PALLAS_GT=1 computes the
+gammatone channel with the fused kernel B''.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
 import os
+import time
 
 import torch
 
-from tpu_breath.config import DEFAULT_FEATURES
-from tpu_breath.data import wav as wav_io
 from tpu_breath_torch import ensemble
+from tpu_breath_torch.config import (CNN8_TRAIN, DEFAULT_FEATURES, VGG_TRAIN,
+                                     FeatureSpec, Paths, TrainCfg)
+from tpu_breath_torch.data import dataset as ds
+from tpu_breath_torch.data import wav as wav_io
+from tpu_breath_torch.device import resolve_device
 from tpu_breath_torch.train import checkpoint as ckpt_lib
 
-CKPT_DIRNAME = "checkpoints_torch"
+ARCH_CFGS = {"cnn8": CNN8_TRAIN, "vgg": VGG_TRAIN}
+NOT_PORTED = ("--fused, --mesh, --scan, --epoch-scan and --profile of the "
+              "JAX package's CLI are not ported yet")
 
 
 def ckpt_dir(out_root: str, arch: str) -> str:
-    return os.path.join(out_root, CKPT_DIRNAME, arch)
+    return os.path.join(Paths(out_root=out_root).ckpt_dir, arch)
 
 
-def resolve_device(name: str) -> torch.device:
-    """'cuda' demands a card (no silent CPU fallback); 'cpu' runs the plain
-    versions of the kernels."""
-    if name == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda but torch.cuda.is_available() is "
-                           "False; pass --device cpu to run on the CPU")
-    return torch.device(name)
+def _build_feature_store(paths: Paths, spec: FeatureSpec, device,
+                         write_npz: bool = False, chunk: int = 128
+                         ) -> ds.FeatureStore:
+    """wav -> feature graph on device -> FeatureStore (train rows first,
+    then test), written to the flat cache."""
+    from tpu_breath_torch.features import extract_features_batched
+
+    train_rows, test_rows = ds.load_frames(paths)
+    ids = [r["ID"] for r in train_rows] + [r["ID"] for r in test_rows]
+    wav_paths = ([os.path.join(paths.train_audio_dir,
+                               ds.train_wav_name(r["ID"]))
+                  for r in train_rows]
+                 + [os.path.join(paths.test_audio_dir,
+                                 ds.test_wav_name(r["ID"]))
+                    for r in test_rows])
+    print(f"decoding {len(wav_paths)} wavs", flush=True)
+    t0 = time.time()
+    errors: list = []
+    wavs = wav_io.load_wav_batch(wav_paths, spec.expected_len, errors=errors)
+    for path, msg in errors:
+        print(f"error: {path}: {msg}")
+    print(f"decoded in {time.time() - t0:.1f}s ({len(wav_paths) - len(errors)}"
+          f" ok, {len(errors)} failed)")
+    t0 = time.time()
+    feats, scals = extract_features_batched(wavs, spec, chunk=chunk,
+                                            device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.time() - t0
+    print(f"features: {len(ids)} clips in {dt:.2f}s "
+          f"({len(ids) / max(dt, 1e-9):.1f} clips/s) on {device}")
+    store = ds.FeatureStore(ids, feats, scals)
+    store.save_cache(paths.feature_cache)
+    if write_npz:
+        print(f"writing npz files to {paths.precomputed_dir}")
+        store.save_npz(paths.precomputed_dir, spec)
+    return store
+
+
+def _load_or_build_store(paths: Paths, spec: FeatureSpec, device
+                         ) -> ds.FeatureStore:
+    if ds.FeatureStore.cache_exists(paths.feature_cache):
+        print(f"feature cache hit: {paths.feature_cache}")
+        return ds.FeatureStore.load_cache(paths.feature_cache, mmap=False)
+    return _build_feature_store(paths, spec, device)
+
+
+def cmd_precompute(args) -> None:
+    device = resolve_device(args.device)
+    _build_feature_store(Paths(args.root, args.out_root), DEFAULT_FEATURES,
+                         device, write_npz=args.npz, chunk=args.chunk)
+
+
+def _prepare_splits(paths: Paths, spec: FeatureSpec, device,
+                    npz_dir: str | None = None):
+    train_rows, test_rows = ds.load_frames(paths)
+    if npz_dir:
+        print(f"loading npz features from {npz_dir}")
+        all_ids = [r["ID"] for r in train_rows + test_rows]
+        store = ds.FeatureStore.load_npz(npz_dir, all_ids, spec)
+    else:
+        store = _load_or_build_store(paths, spec, device)
+    tr_rows, va_rows = ds.split_train_val(train_rows)
+    tr = store.subset([r["ID"] for r in tr_rows])
+    va = store.subset([r["ID"] for r in va_rows])
+    te = store.subset([r["ID"] for r in test_rows])
+    y_tr = ds.labels_from_targets([r["Target"] for r in tr_rows])
+    y_va = ds.labels_from_targets([r["Target"] for r in va_rows])
+    return tr, va, te, y_tr, y_va
+
+
+def set_f32(device) -> None:
+    """--f32: f32 activations, and no TF32 in cuDNN convolutions or cuBLAS
+    matmuls (cuDNN allows TF32 by default)."""
+    if device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print("--f32: float32 activations; TF32 off for cuDNN and cuBLAS")
+
+
+def _train_one(arch: str, cfg: TrainCfg, tr, va, y_tr, y_va, paths: Paths,
+               device, resume: bool = False, f32: bool = False):
+    from tpu_breath_torch.models import registry
+    from tpu_breath_torch.train import loop
+
+    model = registry.build(arch, va.scalars.shape[1], seed=cfg.seed,
+                           bf16=not f32)
+    print(f"training {arch} ({cfg.num_epochs} epochs, lr {cfg.base_lr}, "
+          f"batch {cfg.batch_size}, cached features, {device})", flush=True)
+    save_dir = ckpt_dir(paths.out_root, arch)
+    result = loop.fit(model, (tr.features, tr.scalars),
+                      (va.features, va.scalars), y_tr, y_va, cfg,
+                      save_dir=save_dir, resume=resume, device=device,
+                      log_fn=lambda m: print(m, flush=True))
+    print(f"{arch} best val acc {result.best_val_acc:.4f} @ "
+          f"{result.best_ckpt_path}")
+    os.makedirs(save_dir, exist_ok=True)
+    with open(os.path.join(save_dir, "history.jsonl"), "w") as f:
+        for row in result.history:
+            f.write(json.dumps(row) + "\n")
+    return result
+
+
+def _arch_cfg(arch: str, args) -> TrainCfg:
+    cfg = ARCH_CFGS.get(arch, TrainCfg())
+    overrides = {}
+    if args.epochs:
+        overrides["num_epochs"] = args.epochs
+    if args.seed is not None:
+        overrides["seed"] = args.seed
+    if args.batch_size:
+        overrides["batch_size"] = args.batch_size
+        overrides["eval_batch_size"] = 2 * args.batch_size
+    return dataclasses.replace(cfg, **overrides)
+
+
+def cmd_train(args) -> None:
+    device = resolve_device(args.device)
+    if args.f32:
+        set_f32(device)
+    paths = Paths(args.root, args.out_root)
+    tr, va, te, y_tr, y_va = _prepare_splits(paths, DEFAULT_FEATURES, device,
+                                             npz_dir=args.from_npz)
+    results = {arch: _train_one(arch, _arch_cfg(arch, args), tr, va, y_tr,
+                                y_va, paths, device, resume=args.resume,
+                                f32=args.f32)
+               for arch in args.archs.split(",")}
+    if args.predict:
+        ckpts = [r.best_ckpt_path for r in results.values()]
+        if None in ckpts:
+            raise RuntimeError("a model saved no checkpoint: nothing to "
+                               "predict with")
+        _predict(ckpts, list(results), [r.best_val_acc
+                                        for r in results.values()],
+                 te, paths, device)
+
+
+def cmd_e2e(args) -> None:
+    args.predict = True
+    cmd_train(args)
+
+
+def _predict(ckpts, archs, scores, te, paths: Paths, device) -> None:
+    probs = ensemble.weighted_ensemble(ckpts, archs, scores, te.features,
+                                       te.scalars, te.scalars.shape[1],
+                                       device=device)
+    out = os.path.join(paths.submission_dir, "submission.csv")
+    rows = ensemble.write_submission(te.ids, probs, out)
+    print(f"submission written: {out} ({len(rows)} rows)")
 
 
 def _load_ensemble_ckpts(out_root: str, archs: list[str]):
@@ -49,11 +208,16 @@ def _load_ensemble_ckpts(out_root: str, archs: list[str]):
 
 
 def cmd_predict(args) -> None:
-    if not args.from_wav:
-        raise SystemExit("predict: only --from-wav is ported so far")
     device = resolve_device(args.device)
     spec = DEFAULT_FEATURES
     archs = args.archs.split(",")
+    paths = Paths(args.root, args.out_root)
+    if not args.from_wav:
+        _, _, te, _, _ = _prepare_splits(paths, spec, device,
+                                         npz_dir=args.from_npz)
+        ckpts, scores = _load_ensemble_ckpts(args.out_root, archs)
+        _predict(ckpts, archs, scores, te, paths, device)
+        return
     ckpts, scores = _load_ensemble_ckpts(args.out_root, archs)
     errors: list = []
     wavs = wav_io.load_wav_batch(args.from_wav, spec.expected_len,
@@ -64,25 +228,75 @@ def cmd_predict(args) -> None:
                                     device=device)
     for path, p in zip(args.from_wav, probs):
         print(f"{path}\t{'E' if p > 0.5 else 'I'}\t{p:.4f}")
-    out = os.path.join(args.out_root, "submissions",
-                       "from_wav_predictions.csv")
+    out = os.path.join(paths.submission_dir, "from_wav_predictions.csv")
     ensemble.write_submission(args.from_wav, probs, out)
     print(f"predictions written: {out}")
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(prog="tpu_breath_torch")
-    sub = p.add_subparsers(dest="cmd", required=True)
-    sp = sub.add_parser("predict")
-    sp.add_argument("--out-root", dest="out_root", default=".")
-    sp.add_argument("--archs", default="cnn8")
+    p = argparse.ArgumentParser(
+        prog="tpu_breath_torch",
+        description="Breathing-phase classifier, PyTorch/CUDA port. A bare "
+                    "run trains cnn8,vgg and predicts. " + NOT_PORTED + ".")
+    p.add_argument("--precompute", action="store_true",
+                   help="legacy flag of the bare run: run precompute")
+    sub = p.add_subparsers(dest="cmd")
+
+    def common(sp):
+        sp.add_argument("--root", default="input")
+        sp.add_argument("--out-root", dest="out_root", default=".")
+        sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                        help="cuda (default) demands a card; cpu runs the "
+                             "kernels' plain versions")
+
+    sp = sub.add_parser("precompute", epilog=NOT_PORTED)
+    common(sp)
+    sp.add_argument("--npz", action="store_true",
+                    help="also write per-clip .npz files")
+    sp.add_argument("--chunk", type=int, default=128)
+    sp.set_defaults(fn=cmd_precompute)
+
+    for name, fn in (("train", cmd_train), ("e2e", cmd_e2e)):
+        sp = sub.add_parser(name, epilog=NOT_PORTED)
+        common(sp)
+        sp.add_argument("--archs", default="cnn8,vgg")
+        sp.add_argument("--epochs", type=int, default=0,
+                        help="override the epoch count")
+        sp.add_argument("--predict", action="store_true")
+        sp.add_argument("--resume", action="store_true")
+        sp.add_argument("--seed", type=int, default=None,
+                        help="seed override (init, augmentation, shuffle)")
+        sp.add_argument("--batch-size", dest="batch_size", type=int,
+                        default=0, help="override the train batch size "
+                                        "(eval batch follows at 2x)")
+        sp.add_argument("--f32", action="store_true",
+                        help="float32 activations instead of bf16 autocast, "
+                             "TF32 off")
+        sp.add_argument("--from-npz", dest="from_npz", default=None,
+                        metavar="DIR", help="read per-clip .npz features "
+                                            "instead of the feature cache")
+        sp.set_defaults(fn=fn)
+
+    sp = sub.add_parser("predict", epilog=NOT_PORTED)
+    common(sp)
+    sp.add_argument("--archs", default="cnn8,vgg")
+    sp.add_argument("--from-npz", dest="from_npz", default=None,
+                    metavar="DIR")
     sp.add_argument("--from-wav", dest="from_wav", nargs="+", default=None,
                     metavar="FILE", help="classify wav file(s) directly")
-    sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     sp.set_defaults(fn=cmd_predict)
     return p
 
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    if args.cmd is None:
+        # bare run = train + predict (or precompute with the legacy flag)
+        ns = argparse.Namespace(root="input", out_root=".", device="cuda",
+                                npz=False, chunk=128, archs="cnn8,vgg",
+                                epochs=0, predict=True, resume=False,
+                                seed=None, batch_size=0, f32=False,
+                                from_npz=None)
+        (cmd_precompute if args.precompute else cmd_train)(ns)
+        return
     args.fn(args)

@@ -3,18 +3,26 @@
 
 Channel order at the model boundary is alphabetical: chroma, gammatone, lpc,
 mel, mel_delta, mel_delta2, mfcc, mod_spec, tempogram.
+
+The gammatone channel has two backends, as in the JAX package: kernel B on
+the shared round-once |STFT_512| (the default), or kernel B'' from the raw
+frames (fused_gt=True). Left unset, fused_gt is read from the JAX package's
+switch, TPU_BREATH_PALLAS_GT=1, at every call.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
-from tpu_breath.config import DEFAULT_FEATURES, FeatureSpec
+from tpu_breath_torch.config import DEFAULT_FEATURES, FeatureSpec
+from tpu_breath_torch.device import resolve_device
 from tpu_breath_torch.ops import cepstral, chroma as chroma_ops
 from tpu_breath_torch.ops import cqt as cqt_ops
 from tpu_breath_torch.ops import lpc as lpc_ops
 from tpu_breath_torch.ops import rhythm, scalars as scalar_ops, spectral
-from tpu_breath_torch.ops.cuda import epilogue_kernel
+from tpu_breath_torch.ops.cuda import epilogue_kernel, gammatone_kernel
 
 
 def _zn(x):
@@ -30,13 +38,33 @@ def _pads(x, spec: FeatureSpec):
                                  spec.n_mels)
 
 
+def _gammatone(y: torch.Tensor, stft512: torch.Tensor, spec: FeatureSpec,
+               fused_gt: bool) -> torch.Tensor:
+    """z-normed log1p(64-band mel filterbank @ |STFT_512|) [B, 64, T]."""
+    fb = spectral.device_const(spectral.mel_matrix, spec.sr, spec.n_fft,
+                               spec.n_gammatone, device=y.device)
+    if not fused_gt:
+        return epilogue_kernel.fused_epilogue(stft512, fb)
+    n_fft, hop = spec.n_fft, spec.hop_length
+    yp = torch.nn.functional.pad(y, (n_fft // 2, n_fft // 2))
+    frames = spectral.frame_signal(yp, n_fft, hop, 1 + y.shape[-1] // hop)
+    basis = spectral.device_const(spectral.framedft_basis, n_fft,
+                                  device=y.device)
+    return gammatone_kernel.fused_gammatone(frames.contiguous(), basis, fb)
+
+
 @torch.no_grad()
-def extract_features(y: torch.Tensor, spec: FeatureSpec = DEFAULT_FEATURES
+def extract_features(y: torch.Tensor, spec: FeatureSpec = DEFAULT_FEATURES,
+                     fused_gt: bool | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """y[B, 16000] f32 -> (features [B, 9, 128, 63], scalars [B, 36]), on
-    y's device."""
+    y's device. fused_gt computes the gammatone channel with kernel B''
+    (frames -> DFT -> |S| -> epilogue) instead of kernel B; None reads
+    TPU_BREATH_PALLAS_GT now."""
     if y.dim() != 2:
         raise ValueError(f"y {tuple(y.shape)}: want [B, n_samples]")
+    if fused_gt is None:
+        fused_gt = os.environ.get("TPU_BREATH_PALLAS_GT", "0") == "1"
     spectral.disable_tf32()
     y = y.float()
     sr, hop, n_fft = spec.sr, spec.hop_length, spec.n_fft
@@ -72,10 +100,7 @@ def extract_features(y: torch.Tensor, spec: FeatureSpec = DEFAULT_FEATURES
                                stft2048_mag=stft2048_mag)
     chroma_c = _pads(_zn_rows(torch.cat([ch, cens], dim=-2)), spec)
 
-    # "gammatone" = z-normed log1p(64-band mel filterbank @ |STFT|): kernel B
-    gt_fb = spectral.device_const(spectral.mel_matrix, sr, n_fft,
-                                  spec.n_gammatone, device=y.device)
-    gt_c = _pads(epilogue_kernel.fused_epilogue(stft512, gt_fb), spec)
+    gt_c = _pads(_gammatone(y, stft512, spec, fused_gt), spec)
 
     lpc_c = _pads(_zn(lpc_ops.lpc_features(y, spec.n_lpc, sr)), spec)
     mod_c = _pads(_zn(cepstral.mod_spec(mel_db, n_keep=40)), spec)
@@ -99,10 +124,11 @@ def extract_features(y: torch.Tensor, spec: FeatureSpec = DEFAULT_FEATURES
 
 def extract_features_batched(wavs: np.ndarray,
                              spec: FeatureSpec = DEFAULT_FEATURES,
-                             chunk: int = 128, device: str = "cpu"
+                             chunk: int = 128, device="cuda"
                              ) -> tuple[np.ndarray, np.ndarray]:
     """wavs[N, 16000] -> numpy (features [N, 9, 128, 63], scalars [N, 36]),
     in chunks of `chunk` clips on `device`."""
+    device = resolve_device(device)
     n = wavs.shape[0]
     feats_out = np.empty((n, spec.n_channels, spec.n_mels, spec.t_fixed),
                          np.float32)

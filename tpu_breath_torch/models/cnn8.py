@@ -11,7 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpu_breath_torch.models.layers import ConvBlock, MLPBlock
+from tpu_breath_torch.models.layers import Classifier, ConvBlock, MLPBlock
 
 IN_CHANNELS = 9
 WIDTHS = (32, 64, 128, 128, 256, 256, 256, 256)
@@ -20,22 +20,21 @@ DROP_AFTER = 3
 DROPOUT = 0.3
 
 
-class CNN8(nn.Module):
-    """features [B, C, H, W], scalars [B, S] -> logits [B].
+class CNN8(Classifier):
+    """features [B, C, H, W], scalars [B, S] -> logits [B] (bf16 body on
+    CUDA, f32 head: see Classifier)."""
 
-    On CUDA the body runs under bf16 autocast (the JAX package's bf16
-    activations); the last Linear always runs in f32. Elsewhere it runs in
-    the input's dtype."""
-
-    def __init__(self, num_scalar_features: int = 36):
-        super().__init__()
+    def __init__(self, num_scalar_features: int = 36,
+                 dropout_rate: float = DROPOUT, bf16: bool = True):
+        super().__init__(bf16)
+        d = dropout_rate
         ins = (IN_CHANNELS,) + WIDTHS[:-1]
         self.convs = nn.ModuleList(ConvBlock(i, o) for i, o in zip(ins, WIDTHS))
-        self.channel_dropout = nn.Dropout2d(DROPOUT)
+        self.channel_dropout = nn.Dropout2d(d)
         self.scalar_mlp = nn.ModuleList([
-            MLPBlock(num_scalar_features, 64, DROPOUT), MLPBlock(64, 64)])
+            MLPBlock(num_scalar_features, 64, d), MLPBlock(64, 64)])
         self.classifier = nn.ModuleList([
-            MLPBlock(WIDTHS[-1] + 64, 256, DROPOUT), MLPBlock(256, 128)])
+            MLPBlock(WIDTHS[-1] + 64, 256, d), MLPBlock(256, 128)])
         self.head = nn.Linear(128, 1)
 
     def _body(self, x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -52,14 +51,3 @@ class CNN8(nn.Module):
         for block in self.classifier:
             z = block(z)
         return z
-
-    def forward(self, features: torch.Tensor, scalars: torch.Tensor
-                ) -> torch.Tensor:
-        dev = features.device.type
-        if dev == "cuda":
-            with torch.autocast("cuda", dtype=torch.bfloat16):
-                z = self._body(features, scalars)
-        else:
-            z = self._body(features, scalars)
-        with torch.autocast(dev, enabled=False):
-            return self.head(z.float()).squeeze(-1)

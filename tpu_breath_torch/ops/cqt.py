@@ -15,7 +15,7 @@ import numpy as np
 import scipy.signal
 import torch
 
-from tpu_breath.baseline import dsp_np as _oracle
+from tpu_breath_torch.baseline import dsp_np as _oracle
 from tpu_breath_torch.ops import spectral
 from tpu_breath_torch.ops import chroma as chroma_ops
 

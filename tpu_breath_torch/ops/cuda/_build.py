@@ -2,8 +2,10 @@
 C interface, loaded with ctypes.
 
 The library is built at first use from every csrc/*.cu of this package into
-tpu_breath_torch/_build/ (git-ignored). Its file name carries a hash of the
-sources, so an edited kernel is rebuilt and a stale library never loads.
+tpu_breath_torch/_build/ (git-ignored): one nvcc per source, all started
+together, then one link. Its file name carries a hash of the sources
+(headers included), so an edited kernel is rebuilt and a stale library never
+loads.
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ _I = ctypes.c_int
 # C entry point -> argument types (all return a cudaError_t as int)
 SIGNATURES = {
     "tuning_index_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "fused_epilogue_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "fused_epilogue_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "fused_gammatone_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "suppress_peaks_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
@@ -54,6 +57,20 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libtpu_breath_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands concurrently; raise on the first failure. Returns
+    their stderr (nvcc's -Xptxas -v report), concatenated."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (_, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"{os.path.basename(cmd[-1])}: nvcc failed "
+                               f"({p.returncode}):\n{err}")
+    return "".join(err for _, err in outs)
+
+
 def build() -> dict:
     """Compile csrc/*.cu if the library for these sources is missing.
     Returns {"path", "seconds", "log"} (log holds nvcc's -Xptxas -v report)."""
@@ -61,17 +78,23 @@ def build() -> dict:
     if os.path.exists(out):
         return {"path": out, "seconds": 0.0, "log": "cached"}
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    cus = [s for s in _sources() if s.endswith(".cu")]
+    objs = [os.path.join(BUILD_DIR, os.path.basename(s) + f".{tag}.o")
+            for s in cus]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    log = _run_all([[nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c",
+                     "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", o, s]
+                    for s, o in zip(cus, objs)])
+    tmp = f"{out}.{tag}"
+    try:
+        _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]])
+    finally:
+        for o in objs:
+            os.remove(o)
     os.replace(tmp, out)
-    return {"path": out, "seconds": seconds, "log": res.stderr}
+    return {"path": out, "seconds": time.perf_counter() - t0, "log": log}
 
 
 @functools.lru_cache(maxsize=None)

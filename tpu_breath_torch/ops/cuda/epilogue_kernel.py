@@ -1,10 +1,13 @@
-"""Kernel B: the gammatone-channel epilogue (csrc/epilogue_kernel.cu).
+"""Kernels B and B': the gammatone-channel epilogue (csrc/epilogue_kernel.cu).
 
-Counterpart of tpu_breath/ops/pallas/epilogue_kernel.py::fused_epilogue
-(double-float variant): z-normed log1p(fb @ |S|) over each whole clip. The
-product accumulates in float64 and log1p is rounded once, because this
-channel's z-score divides by a std of ~0.005 on quiet clips and amplifies
-f32 accumulation error past the parity budget.
+Counterpart of tpu_breath/ops/pallas/epilogue_kernel.py::fused_epilogue:
+z-normed log1p(fb @ |S|) over each whole clip.
+- B (plain=False, the default): the product accumulates in float64 and
+  log1p is rounded once, because this channel's z-score divides by a std of
+  ~0.005 on quiet clips and amplifies f32 accumulation error past the
+  parity budget.
+- B' (plain=True, the JAX kernel's name for it): native f32 product and
+  log1p, the like-for-like partner of a plain f32 GEMM.
 """
 from __future__ import annotations
 
@@ -14,29 +17,41 @@ from tpu_breath_torch.ops.cuda import _build
 
 MAX_SMEM_FLOATS = 56_000  # (F*T + G*T) floats, under the 227 KB cap
 
-LAUNCHES = 0
+LAUNCHES = 0      # kernel B
+LAUNCHES_F32 = 0  # kernel B'
 
 
-def fused_epilogue_plain(mag: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: mag [B, F, T], fb [G, F] -> [B, G, T] f32.
-    The z-score takes its mean and variance as float64 sums rounded to f32,
-    as the kernel does."""
-    gt = torch.log1p(torch.matmul(fb.double(), mag.double())).float()
+def znorm_clip(gt: torch.Tensor) -> torch.Tensor:
+    """z-score of each [G, T] clip of gt [B, G, T] f32, its mean and variance
+    taken as float64 sums rounded to f32, as the kernels do."""
     mean = gt.double().mean(dim=(-2, -1), keepdim=True).float()
     d = gt - mean
     var = d.double().square().mean(dim=(-2, -1), keepdim=True).float()
     return d / (torch.sqrt(var) + 1e-8)
 
 
-def fused_epilogue(mag: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
+def fused_epilogue_plain(mag: torch.Tensor, fb: torch.Tensor,
+                         plain: bool = False) -> torch.Tensor:
+    """Plain PyTorch version: mag [B, F, T], fb [G, F] -> [B, G, T] f32.
+    plain=False: float64 product, log1p rounded once; plain=True: an f32
+    matmul (TF32 off) and f32 log1p."""
+    if plain:
+        return znorm_clip(torch.log1p(torch.matmul(fb.float(), mag.float())))
+    return znorm_clip(torch.log1p(torch.matmul(fb.double(),
+                                               mag.double())).float())
+
+
+def fused_epilogue(mag: torch.Tensor, fb: torch.Tensor,
+                   plain: bool = False) -> torch.Tensor:
     """z-normed log1p(fb @ mag) per clip: mag [B, F, T], fb [G, F] f32.
-    CPU tensors run the plain version; CUDA tensors run the kernel."""
-    global LAUNCHES
+    CPU tensors run the plain version; CUDA tensors run kernel B (plain=False)
+    or B' (plain=True)."""
+    global LAUNCHES, LAUNCHES_F32
     if mag.dim() != 3 or fb.dim() != 2 or fb.shape[1] != mag.shape[1]:
         raise ValueError(f"mag {tuple(mag.shape)} / fb {tuple(fb.shape)}: "
                          "want [B, F, T] and [G, F]")
     if mag.device.type == "cpu":
-        return fused_epilogue_plain(mag, fb)
+        return fused_epilogue_plain(mag, fb, plain)
     if mag.device.type != "cuda" or fb.device != mag.device:
         raise ValueError(f"unsupported devices {mag.device}/{fb.device}")
     if mag.dtype != torch.float32 or fb.dtype != torch.float32:
@@ -50,7 +65,11 @@ def fused_epilogue(mag: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
     out = torch.empty(b, g, t, dtype=torch.float32, device=mag.device)
     stream = torch.cuda.current_stream(mag.device).cuda_stream
     rc = _build.lib().fused_epilogue_launch(
-        mag.data_ptr(), fb.data_ptr(), out.data_ptr(), b, f, t, g, stream)
+        mag.data_ptr(), fb.data_ptr(), out.data_ptr(), b, f, t, g,
+        int(plain), stream)
     _build.check(rc, "fused_epilogue_launch")
-    LAUNCHES += 1
+    if plain:
+        LAUNCHES_F32 += 1
+    else:
+        LAUNCHES += 1
     return out

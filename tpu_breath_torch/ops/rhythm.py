@@ -7,7 +7,7 @@ import functools
 import numpy as np
 import torch
 
-from tpu_breath.baseline import dsp_np as _oracle
+from tpu_breath_torch.baseline import dsp_np as _oracle
 from tpu_breath_torch.ops import spectral
 
 _TINY = float(np.finfo(np.float32).tiny)

@@ -13,7 +13,7 @@ import functools
 import numpy as np
 import torch
 
-from tpu_breath.baseline import dsp_np as _oracle
+from tpu_breath_torch.baseline import dsp_np as _oracle
 
 
 def disable_tf32() -> None:
@@ -47,6 +47,19 @@ def mel_matrix(sr: int, n_fft: int, n_mels: int, fmin: float = 0.0,
 @functools.lru_cache(maxsize=None)
 def _hann64(n: int) -> np.ndarray:
     return _oracle.hann(n, True)
+
+
+@functools.lru_cache(maxsize=None)
+def framedft_basis(n_fft: int) -> np.ndarray:
+    """Hann-folded real-DFT basis [n_fft, 2F] = (w*cos | -w*sin), built in
+    float64 and rounded once to f32 (tpu_breath/ops/spectral.py:131-144):
+    kernel B'' multiplies raw frames by it."""
+    kk = np.arange(n_fft)[:, None]
+    ff = np.arange(n_fft // 2 + 1)[None, :]
+    ang = 2.0 * np.pi * kk * ff / n_fft
+    w = _oracle.hann(n_fft, True)[:, None]
+    return np.concatenate([np.cos(ang) * w, -np.sin(ang) * w],
+                          axis=1).astype(np.float32)
 
 
 def frame_signal(y: torch.Tensor, frame_length: int, hop_length: int,

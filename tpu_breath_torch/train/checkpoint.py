@@ -1,8 +1,11 @@
-"""Checkpoints: a state_dict file plus meta.json (counterpart of
-tpu_breath/train/checkpoint.py; Orbax checkpoints are not read).
+"""Checkpoints (counterpart of tpu_breath/train/checkpoint.py; Orbax
+checkpoints are not read). A checkpoint holds what the JAX TrainState
+holds: the model (parameters and BatchNorm statistics), the optimizer state
+and the step, plus metadata.
 
-Layout: <save_dir>/best_epochNNN/{model.pt, meta.json}. meta.json is written
-last, so a directory without it is an interrupted save and is skipped.
+Layout: <save_dir>/best_epochNNN/{model.pt, train_state.pt, meta.json}.
+meta.json is written last, so a directory without it is an interrupted save
+and is skipped. Serving restores model.pt alone.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import re
 import torch
 
 MODEL_FILE = "model.pt"
+STATE_FILE = "train_state.pt"
 META_FILE = "meta.json"
 
 
@@ -21,12 +25,17 @@ def _dir(save_dir: str, epoch: int) -> str:
 
 
 def save(save_dir: str, model: torch.nn.Module, epoch: int,
-         metadata: dict) -> str:
-    """Write model.state_dict() and {"epoch", **metadata}; returns the path."""
+         metadata: dict, optimizer: torch.optim.Optimizer | None = None,
+         step: int = 0) -> str:
+    """Write model.state_dict(), the optimizer state and step (when an
+    optimizer is given), then {"epoch", **metadata}; returns the path."""
     path = _dir(save_dir, epoch)
     os.makedirs(path, exist_ok=True)
     state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     torch.save(state, os.path.join(path, MODEL_FILE))
+    if optimizer is not None:  # loaded with map_location="cpu"
+        torch.save({"optimizer": optimizer.state_dict(), "step": int(step)},
+                   os.path.join(path, STATE_FILE))
     with open(os.path.join(path, META_FILE), "w") as f:
         json.dump({"epoch": epoch,
                    **{k: float(v) for k, v in metadata.items()}}, f)
@@ -54,6 +63,17 @@ def restore(path: str, model: torch.nn.Module) -> torch.nn.Module:
                        weights_only=True)
     model.load_state_dict(state)
     return model
+
+
+def restore_train_state(path: str, model: torch.nn.Module,
+                        optimizer: torch.optim.Optimizer) -> tuple[int, int]:
+    """Load model, optimizer state and step; returns (step, epoch). The
+    optimizer's state follows its parameters' device."""
+    restore(path, model)
+    state = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
+                       weights_only=True)
+    optimizer.load_state_dict(state["optimizer"])
+    return int(state["step"]), int(load_metadata(path)["epoch"])
 
 
 def load_metadata(path: str) -> dict:
