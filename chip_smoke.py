@@ -8,10 +8,11 @@ no result line):
      fails without a CUDA device;
   2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel,
      sm_90a) and print the time;
-  3. each kernel (A, B, B', B'', C) against its plain PyTorch version on the
-     card, at the main path's shapes with B = 8 and B = 128 (golden wavs +
-     seeded noise, silence, an impulse, quantized plateaus), with times and
-     the least time the card could take (bound);
+  3. each kernel (A, B, B', B'', C, D) against its plain PyTorch version on
+     the card, at the main path's shapes with B = 8 and B = 128 (golden wavs
+     + seeded noise, silence, an impulse, quantized plateaus), with times
+     and the least time the card could take (bound); D, on no path (as in
+     the JAX package), at the shapes of its function, beside conv1d;
   4. extract_features on the card for the golden wavs, against the golden
      npz and the port's CPU result; with fused_gt (kernel B'') against the
      default path;
@@ -23,10 +24,19 @@ no result line):
      (full width, batch 512), train --archs cnn8 --epochs 7 --resume,
      predict from the cache and predict --from-wav; kernels A, B, B'', C
      must launch;
-  7. timings: extract_features and one serve call (B = 8 / 128), one train
-     step of CNN8 and of VGG at batch 512 (CUDA events), epoch wall time
-     and precompute clips/s;
-  8. the kernels JSON line, then the last line: {"ok": true, "device": {...}}.
+  7. fused: the features inside one fused step against the cache's rows
+     (equal), then under deterministic cuDNN train --archs cnn8,vgg
+     --epochs 6 from the cache and train --fused ... --predict with
+     TPU_BREATH_PALLAS_GT=1: equal histories, A/B''/C launched 192/96/96
+     times, a submission;
+  8. profile: precompute --profile (stages, slowest first) and train
+     --fused --archs cnn8 --epochs 2 --profile (the top device operations
+     of the fused steps, from the trace);
+  9. timings: extract_features (B = 8 / 128), one serve call and the
+     serve micro-batch's median and p90 over 40 calls, one train step of
+     CNN8 and of VGG at batch 512 (CUDA events), cached and fused
+     (features and model apart), epoch wall times and precompute clips/s;
+ 10. the kernels JSON line, then the last line: {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -57,6 +67,9 @@ F64_FLOPS = 67e12
 # tolerances (tests/test_pallas_epilogue.py), 1e-5 for the float64
 # variants, 5e-5 for the f32 one
 TOLS = {"B": 1e-5, "B'": 5e-5, "B''": 1e-5}
+# kernel D: max|a - b| / max|b| against its plain version (float64), the
+# JAX package's tests/test_pallas_cqt.py bound
+TOL_D = 1e-5
 
 
 def log(msg: str) -> None:
@@ -157,13 +170,29 @@ def kernel_inputs(y: torch.Tensor) -> dict:
     basis = spectral.device_const(spectral.framedft_basis, 512,
                                   device=y.device)
     return {"p12": p12, "m12": m12, "p36": p36, "m36": m36, "mag": s512,
-            "fb": fb, "scores": scores, "frames": frames, "basis": basis}
+            "fb": fb, "scores": scores, "frames": frames, "basis": basis,
+            "y": y}
+
+
+def cqt_args() -> tuple:
+    """Kernel D's arguments after y: sr, hop, fmin (C1), bins, bins per
+    octave: the JAX package's test of its Pallas kernel."""
+    from tpu_breath_torch.config import DEFAULT_FEATURES as SPEC
+    return (SR, SPEC.hop_length, SPEC.cqt_fmin, 252, 36)
 
 
 def bounds(x: dict, rounds: int) -> dict:
     """kernel -> (bound_ms, bound_by): the larger of the bytes each input
     read once and each output written once over HBM_BPS, and the
-    operations over the peak rate of their type, at these inputs."""
+    operations over the peak rate of their type, at these inputs. For D
+    the work is what the bank's nonzero windows need: 2 (re, im) FMAs of
+    2 operations per frame and nonzero entry, the nonzero entries read
+    once (re and im f32)."""
+    from tpu_breath_torch.ops.cuda import cqt_kernel as ck
+
+    sr, _, fmin, n_bins, bpo = cqt_args()
+    win = ck.bank_windows(sr, fmin, n_bins, bpo)
+    nnz = int((win[:, 1] - win[:, 0]).sum())
     b = x["mag"].shape[0]
     f, t = x["mag"].shape[1:]
     g = x["fb"].shape[0]
@@ -183,6 +212,8 @@ def bounds(x: dict, rounds: int) -> dict:
         # C: `rounds` passes of one compare per score
         "C": (nb(x["scores"]) + b * rounds * 5,  # f32 vals + uint8 kept
               (rounds * x["scores"].numel(), F32_FLOPS)),
+        "D": (nb(x["y"]) + nnz * 8 + b * n_bins * t * 4,
+              (2 * 2 * t * nnz * b, F32_FLOPS)),
     }
     out = {}
     for name, (nbytes, (flops, peak)) in work.items():
@@ -196,13 +227,14 @@ def phase_kernels() -> dict:
     """Kernel vs plain on the card; returns errors and times per kernel."""
     import scipy.signal
     from tpu_breath_torch.ops import dft
-    from tpu_breath_torch.ops.cuda import (epilogue_kernel as ek,
+    from tpu_breath_torch.ops.cuda import (cqt_kernel as ck,
+                                           epilogue_kernel as ek,
                                            gammatone_kernel as gk,
                                            peaks_kernel as pk,
                                            tuning_kernel as tk)
 
     rounds = SR // (SR // 10) + 2
-    res = {k: {"err": 0.0} for k in ("A", "B", "B'", "B''", "C")}
+    res = {k: {"err": 0.0} for k in ("A", "B", "B'", "B''", "C", "D")}
     for b in (MICRO, CHUNK):
         y = torch.from_numpy(clip_set(b, seed=b)).cuda()
         x = kernel_inputs(y)
@@ -223,6 +255,8 @@ def phase_kernels() -> dict:
                                    gk.fused_gammatone_plain)),
             "C": tuple(lambda f=f: f(x["scores"], SR // 10, rounds)
                        for f in (pk.suppress_peaks, pk.suppress_peaks_plain)),
+            "D": tuple(lambda f=f: f(y, *cqt_args())
+                       for f in (ck.cqt_mag, ck.cqt_mag_plain)),
         }
         out = {k: (run(), plain()) for k, (run, plain) in calls.items()}
         torch.cuda.synchronize()
@@ -251,16 +285,50 @@ def phase_kernels() -> dict:
                 raise AssertionError(f"kernel C clip {i}: "
                                      f"{int(kept[i].sum())} != {len(peaks)}")
         res["C"]["err"] = max(res["C"]["err"], err_c)
+        got, ref = out["D"]
+        rel_d = float((got - ref).abs().max() / ref.abs().max())
+        if not (got.shape == (b, 252, 63) and rel_d < TOL_D):
+            raise AssertionError(f"kernel D B {b}: {tuple(got.shape)}, max "
+                                 f"rel err {rel_d} >= {TOL_D}")
+        res["D"]["err"] = max(res["D"]["err"],
+                              float((got - ref).abs().max()))
         log(f"[kernels] B={b}: A exact at bpo 12/36, "
             + ", ".join(f"{k} err {errs[k]:.3g} (tol {t:g})"
                         for k, t in TOLS.items())
-            + f", C kept exact (= scipy counts), vals err {err_c:.3g}")
+            + f", C kept exact (= scipy counts), vals err {err_c:.3g}, "
+            f"D max|a-b|/max|b| {rel_d:.3g} (tol {TOL_D:g})")
         for k, (run, plain) in calls.items():
             res[k][b] = (cuda_ms(run), cuda_ms(plain))
             bound, by = res["bound", b][k]
             log(f"[time] kernel {k} B={b}: {res[k][b][0]:.4f} ms, plain "
                 f"{res[k][b][1]:.4f} ms, bound {bound:.4f} ms ({by})")
+        res["D", "library", b] = cuda_ms(cqt_conv1d(y))
+        log(f"[time] kernel D B={b}: library conv1d (f32, TF32 off; the "
+            f"complex response without |.|) {res['D', 'library', b]:.4f} ms")
     return res
+
+
+def cqt_conv1d(y: torch.Tensor):
+    """The one PyTorch call nearest kernel D: conv1d of the padded clips
+    with the bank's 252 (re, im) rows at stride hop, in f32 with TF32 off;
+    it leaves out the magnitude, a [B, 252, 63] elementwise step. Returns
+    the call, for timing."""
+    from tpu_breath_torch.ops import spectral
+    from tpu_breath_torch.ops.cuda import cqt_kernel as ck
+
+    sr, hop, fmin, n_bins, bpo = cqt_args()
+    k_re, k_im, half, l_pad = ck._kernel_bank(sr, fmin, n_bins, bpo)
+    w = torch.from_numpy(np.concatenate([k_re, k_im]))[:, None].cuda()
+    n = y.shape[-1]
+    ypad = torch.nn.functional.pad(
+        y, (half, hop * (n // hop) + l_pad - n - half))[:, None]
+
+    def call():
+        with spectral.full_f32():
+            return torch.nn.functional.conv1d(ypad, w, stride=hop)
+    if call().shape != (y.shape[0], 2 * n_bins, 1 + n // hop):
+        raise AssertionError(f"conv1d shape {tuple(call().shape)}")
+    return call
 
 
 def phase_features() -> None:
@@ -382,13 +450,15 @@ def phase_serve(tmp: str) -> dict:
 
 def launch_counters() -> dict:
     """kernel -> (wrapper module, name of its launch counter)."""
-    from tpu_breath_torch.ops.cuda import (epilogue_kernel, gammatone_kernel,
-                                           peaks_kernel, tuning_kernel)
+    from tpu_breath_torch.ops.cuda import (cqt_kernel, epilogue_kernel,
+                                           gammatone_kernel, peaks_kernel,
+                                           tuning_kernel)
     return {"A": (tuning_kernel, "LAUNCHES"),
             "B": (epilogue_kernel, "LAUNCHES"),
             "B'": (epilogue_kernel, "LAUNCHES_F32"),
             "B''": (gammatone_kernel, "LAUNCHES"),
-            "C": (peaks_kernel, "LAUNCHES")}
+            "C": (peaks_kernel, "LAUNCHES"),
+            "D": (cqt_kernel, "LAUNCHES")}
 
 
 def reset_launches() -> None:
@@ -526,7 +596,9 @@ def phase_e2e(tmp: str) -> dict:
     out, _ = run_cli(["predict", "--from-wav", *served, "--archs",
                       "cnn8,vgg", *common])
     res["launches"] = read_launches()
-    if min(v for k, v in res["launches"].items() if k != "B'") <= 0:
+    # B' and D are on no path of the system
+    if min(v for k, v in res["launches"].items()
+           if k not in ("B'", "D")) <= 0:
         raise AssertionError(f"a kernel of the path was not launched: "
                              f"{res['launches']}")
     p_wav = np.array([float(l.split("\t")[2]) for l in out.splitlines()
@@ -557,12 +629,178 @@ def phase_e2e(tmp: str) -> dict:
     return res
 
 
-def phase_times(serve: dict, e2e: dict) -> None:
+@contextlib.contextmanager
+def gt_switch_and_deterministic_cudnn():
+    """TPU_BREATH_PALLAS_GT=1 (the features of the cache) and cuDNN's
+    deterministic algorithms inside the block."""
+    os.environ["TPU_BREATH_PALLAS_GT"] = "1"
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        del os.environ["TPU_BREATH_PALLAS_GT"]
+        torch.backends.cudnn.deterministic = False
+
+
+def phase_fused(tmp: str) -> dict:
+    """train --fused against train from the cache, through cli.main on
+    cuda, on phase_e2e's dataset and cache (computed with kernel B'')."""
+    from tpu_breath_torch import cli
+    from tpu_breath_torch.config import CNN8_TRAIN, DEFAULT_FEATURES, Paths
+    from tpu_breath_torch.data import dataset as ds
+    from tpu_breath_torch.data import wav as wav_io
+    from tpu_breath_torch.train import loop
+
+    root = os.path.join(tmp, "input")
+    res = {}
+    with gt_switch_and_deterministic_cudnn():
+        # the features inside one fused step (the first batch of epoch 1,
+        # 4 chunks of 128 clips, precompute's geometry) against the cache
+        tr = cli._prepare_splits(Paths(root, tmp), DEFAULT_FEATURES,
+                                 torch.device("cuda"))[0]
+        wavs = wav_io.load_wav_batch(
+            [os.path.join(root, "train", ds.train_wav_name(i))
+             for i in tr.ids], DEFAULT_FEATURES.expected_len)
+        idx = loop.epoch_permutation(CNN8_TRAIN.seed, 0, len(tr.ids))[
+            :CNN8_TRAIN.batch_size]
+        res["wavs"] = torch.from_numpy(wavs).cuda()
+        f, s = (t.cpu().numpy() for t in loop.fused_features(
+            res["wavs"][torch.from_numpy(idx).cuda()], DEFAULT_FEATURES))
+        feat_err = float(np.nanmax(np.abs(f - tr.features[idx])))
+        scal_err = float(np.nanmax(np.abs(s - tr.scalars[idx])))
+        same_nan = (np.array_equal(np.isnan(f), np.isnan(tr.features[idx]))
+                    and np.array_equal(np.isnan(s),
+                                       np.isnan(tr.scalars[idx])))
+        log(f"[fused] one step's features vs the cache's rows ({len(idx)} "
+            f"clips): max abs {feat_err:.3g}, scalars {scal_err:.3g}, NaN "
+            f"masks equal {same_nan} (bound 0: the same kernels at the same "
+            f"chunk geometry)")
+        if not (feat_err == 0 and scal_err == 0 and same_nan):
+            raise AssertionError("fused step features differ from the cache")
+
+        common = ["--root", root, "--device", "cuda", "--archs", "cnn8,vgg",
+                  "--epochs", "6"]
+        cached_out = os.path.join(tmp, "cached_det")
+        run_cli(["train", *common, "--out-root", cached_out])
+        fused_out = os.path.join(tmp, "fused")
+        reset_launches()
+        _, res["train_s"] = run_cli(["train", "--fused", "--predict",
+                                     *common, "--out-root", fused_out])
+        res["launches"] = read_launches()
+    want = {"A": 192, "B": 0, "B'": 0, "B''": 96, "C": 96, "D": 0}
+    log(f"[fused] launches over train --fused {res['launches']} (expected "
+        f"{want}: 6 epochs x 2 steps x 4 chunks x 2 archs)")
+    if res["launches"] != want:
+        raise AssertionError("fused launches differ from the expected")
+    worst = {"train_loss": 0.0, "val_acc": 0.0}
+    for arch in ("cnn8", "vgg"):
+        hf, hc = read_history(fused_out, arch), read_history(cached_out, arch)
+        if len(hf) != 6 or len(hc) != 6:
+            raise AssertionError(f"{arch}: {len(hf)} / {len(hc)} epochs")
+        for k in worst:
+            worst[k] = max([worst[k]] + [abs(a[k] - b[k])
+                                         for a, b in zip(hf, hc)])
+        res[arch] = hf
+        log(f"[fused] {arch} train loss by epoch "
+            f"{[round(r['train_loss'], 6) for r in hf]}, val acc "
+            f"{[round(r['val_acc'], 4) for r in hf]}")
+    # bound 0: equal features, deterministic cuDNN, and every other draw
+    # the cached run's
+    log(f"[fused] fused vs cached history, max |diff|: train_loss "
+        f"{worst['train_loss']:.3g}, val_acc {worst['val_acc']:.3g} "
+        f"(bound 0, cuDNN deterministic)")
+    if any(worst.values()):
+        raise AssertionError(f"fused history differs from cached: {worst}")
+    read_submission(os.path.join(fused_out, "submissions", "submission.csv"),
+                    256)
+    return res
+
+
+def phase_profile(tmp: str) -> None:
+    """precompute --profile and train --fused --profile through cli.main on
+    cuda; the stages and the top device operations of the fused steps."""
+    root = os.path.join(tmp, "input")
+    prof = os.path.join(tmp, "profile")
+    common = ["--root", root, "--out-root", os.path.join(tmp, "prof_out"),
+              "--device", "cuda"]
+    os.environ["TPU_BREATH_PALLAS_GT"] = "1"  # the cache's features
+    try:
+        run_cli(["precompute", "--profile", os.path.join(prof, "features"),
+                 *common])
+        _, dt = run_cli(["train", "--fused", "--archs", "cnn8", "--epochs",
+                         "2", "--profile", os.path.join(prof, "train"),
+                         *common])
+    finally:
+        del os.environ["TPU_BREATH_PALLAS_GT"]
+    with open(os.path.join(prof, "features", "feature_stages.json")) as f:
+        stages = json.load(f)
+    log(f"[profile] feature stages over {stages['n_clips']} clips in chunks "
+        f"of {stages['chunk']} ({stages['timer']}), slowest first: "
+        + "; ".join(f"{r['stage']} {r['ms_per_chunk']:.3f} ms/chunk"
+                    for r in stages["stages"]))
+    with open(os.path.join(prof, "train", "train_profile.json")) as f:
+        log(f"[profile] train_profile.json {json.load(f)}")
+    with open(os.path.join(prof, "train", "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    spans = {name: [(e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") == "gpu_user_annotation"
+                    and e.get("name") == name]
+             for name in ("train_step", "fused_features")}
+    log(f"[profile] trace: {len(events)} events, {len(kernels)} kernels, "
+        f"{len(spans['train_step'])} train_step spans on the device "
+        f"(train --fused cnn8, 2 epochs: {dt:.2f} s)")
+    if not kernels:
+        raise AssertionError("the trace holds no device kernel")
+
+    n_steps = len(spans["train_step"])
+    if not n_steps or len(spans["fused_features"]) != n_steps:
+        raise AssertionError(f"the trace holds {n_steps} train_step and "
+                             f"{len(spans['fused_features'])} fused_features "
+                             "spans on the device: the steps cannot be told "
+                             "apart")
+
+    def inside(e, name):
+        return any(a <= e["ts"] < b for a, b in spans[name])
+
+    # a kernel falls in the device span of its innermost range only: the
+    # features' in fused_features, the model's in train_step
+    kernels = [e for e in kernels if inside(e, "train_step")
+               or inside(e, "fused_features")]
+    feat = [e for e in kernels if inside(e, "fused_features")]
+    total = sum(e["dur"] for e in kernels)
+    # busy share, all from this trace: the device time of the steps' kernels
+    # over the steps' lengths on the device, each from its features' first
+    # kernel to its model's last
+    steps = list(zip(sorted(spans["fused_features"]),
+                     sorted(spans["train_step"])))
+    if any(not (f[0] <= t[0] and f[1] <= t[1]) for f, t in steps):
+        raise AssertionError(f"features and step spans interleave: {steps}")
+    span_us = sum(t[1] - f[0] for f, t in steps)
+    log(f"[profile] device kernels of the {n_steps} fused steps: "
+        f"{total / 1e3:.2f} ms in {len(kernels)} launches "
+        f"({total / 1e3 / n_steps:.2f} ms and {len(kernels) / n_steps:.0f} "
+        f"launches a step); features "
+        f"{sum(e['dur'] for e in feat) / 1e3 / n_steps:.2f} ms in "
+        f"{len(feat) / n_steps:.0f} launches a step; a step spans "
+        f"{span_us / 1e3 / n_steps:.2f} ms on the device, busy "
+        f"{total / span_us:.1%}")
+    for part, ks in (("step", kernels), ("features", feat)):
+        by_name: dict = {}
+        for e in ks:
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            log(f"[profile]   {part:8s} {us / max(total, 1e-9):6.1%} of the "
+                f"step {us / 1e3 / n_steps:8.3f} ms/step  {name[:100]}")
+
+
+def phase_times(serve: dict, e2e: dict, fused: dict) -> None:
     from tpu_breath_torch import augment, ensemble
-    from tpu_breath_torch.config import CNN8_TRAIN, VGG_TRAIN
+    from tpu_breath_torch.config import CNN8_TRAIN, DEFAULT_FEATURES, VGG_TRAIN
     from tpu_breath_torch.features import extract_features
     from tpu_breath_torch.models import registry
     from tpu_breath_torch.train import loop
+    from tpu_breath_torch.utils import path_times
 
     for b in (MICRO, CHUNK):
         y = torch.from_numpy(clip_set(b, seed=b)).cuda()
@@ -582,6 +820,10 @@ def phase_times(serve: dict, e2e: dict) -> None:
     torch.cuda.synchronize()
     log(f"[time] serve_from_wav one micro-batch of {MICRO} (host clock, "
         f"model load included): {(time.perf_counter() - t0) * 1e3:.2f} ms")
+    ms = path_times.serve_ms("cuda", reps=40, micro=MICRO)
+    log(f"[time] serve, one micro-batch of {MICRO} wav -> probabilities, "
+        f"CNN8 built once (utils/path_times.py, host clock, 40 calls): "
+        f"median {np.median(ms):.2f} ms, p90 {np.percentile(ms, 90):.2f} ms")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     for arch, cfg in (("cnn8", CNN8_TRAIN), ("vgg", VGG_TRAIN)):
@@ -603,7 +845,29 @@ def phase_times(serve: dict, e2e: dict) -> None:
             f"10): {plain_ms:.2f} ms without augmentation, {aug_ms:.2f} ms "
             f"with; e2e epoch wall time (2 steps + val of 256) median "
             f"{np.median(secs):.3f} s over epochs 2-6")
-        del model, opt, batch
+        # the fused step on b train clips, as train --fused runs it (B'')
+        w = fused["wavs"][:b]
+        os.environ["TPU_BREATH_PALLAS_GT"] = "1"
+        try:
+            feat_ms = cuda_ms(lambda: loop.fused_features(w, DEFAULT_FEATURES),
+                              iters=3, warmup=1)
+            fb = augment.Batch(*loop.fused_features(w, DEFAULT_FEATURES),
+                               batch.labels)
+            model_ms = cuda_ms(lambda: loop.train_step(model, opt, 1e-4, fb,
+                                                       cfg, draws), iters=10)
+            step_ms = cuda_ms(lambda: loop.train_step(
+                model, opt, 1e-4, augment.Batch(
+                    *loop.fused_features(w, DEFAULT_FEATURES), fb.labels),
+                cfg, draws), iters=3, warmup=1)
+        finally:
+            del os.environ["TPU_BREATH_PALLAS_GT"]
+        fsecs = [r["sec"] for r in fused[arch][1:]]
+        log(f"[time] {arch} fused train step, batch {b} (CUDA events): "
+            f"{step_ms:.2f} ms (mean of 3) = features {feat_ms:.2f} ms "
+            f"(4 chunks of 128, mean of 3) + model {model_ms:.2f} ms (with "
+            f"augmentation, mean of 10); fused epoch wall time (2 steps + "
+            f"val of 256) median {np.median(fsecs):.3f} s over epochs 2-6")
+        del model, opt, batch, fb
     log(f"[time] precompute, 1,536 clips (TPU_BREATH_PALLAS_GT=1): "
         f"{e2e['precompute_line']}; whole command {e2e['precompute_s']:.2f} "
         f"s with decode; train cnn8,vgg 6 epochs + predict "
@@ -618,7 +882,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         serve = phase_serve(tmp)
         e2e = phase_e2e(tmp)
-        phase_times(serve, e2e)
+        fused = phase_fused(tmp)
+        phase_profile(tmp)
+        phase_times(serve, e2e, fused)
     src = "tpu_breath_torch/csrc"
     pallas = "tpu_breath/ops/pallas"
     table = [
@@ -630,16 +896,23 @@ def main() -> int:
         ("B''", "fused_gammatone", "gammatone_kernel.cu",
          "epilogue_kernel.py:126"),
         ("C", "suppress_peaks", "peaks_kernel.cu", "peaks_kernel.py:78"),
+        ("D", "cqt_mag", "cqt_kernel.cu", "cqt_kernel.py:98"),
     ]
-    # times at the precompute chunk (B = 128); no single PyTorch call
-    # computes any of these functions, so library_ms is null
+    # launches: each path counted from 0 just before it runs; times at the
+    # precompute chunk (B = 128). No single PyTorch call computes A-C;
+    # D's library time is conv1d's (its complex response, no |.|)
+    paths = {"serve": serve["launches"], "e2e": e2e["launches"],
+             "fused": fused["launches"]}
     kernels = [{"name": name, "route": "cuda", "source": f"{src}/{f}",
                 "replaces": f"{pallas}/{rep}",
-                "launches": e2e["launches"][k],
+                "launches": sum(p[k] for p in paths.values()),
+                "launches_by_path": {n: p[k] for n, p in paths.items()},
                 "max_abs_err": ker[k]["err"], "ms": ker[k][CHUNK][0],
                 "plain_ms": ker[k][CHUNK][1],
                 "bound_ms": ker["bound", CHUNK][k][0],
-                "bound_by": ker["bound", CHUNK][k][1], "library_ms": None,
+                "bound_by": ker["bound", CHUNK][k][1],
+                "library_ms": ker.get(("D", "library", CHUNK)) if k == "D"
+                else None,
                 "batch": CHUNK}
                for k, name, f, rep in table]
     print(env["smi"])

@@ -67,7 +67,6 @@ def test_epilogue_f32_variant_within_5e5(clips):
     from tpu_breath_torch.ops import spectral
     from tpu_breath_torch.ops.cuda import epilogue_kernel as ek
 
-    spectral.disable_tf32()
     mag = spectral.stft_mag_cr(clips, 512, 256).contiguous()
     fb = spectral.device_const(spectral.mel_matrix, 16000, 512, 64,
                                device=clips.device)
@@ -75,7 +74,8 @@ def test_epilogue_f32_variant_within_5e5(clips):
     got = ek.fused_epilogue(mag, fb, plain=True)
     torch.cuda.synchronize()
     assert ek.LAUNCHES_F32 == before + 1
-    ref = ek.fused_epilogue_plain(mag, fb, plain=True)
+    with spectral.full_f32():
+        ref = ek.fused_epilogue_plain(mag, fb, plain=True)
     assert float((got - ref).abs().max()) <= 5e-5
 
 
@@ -169,3 +169,163 @@ def test_wrappers_reject_wrong_dtype(clips):
 
     with pytest.raises(TypeError):
         pk.suppress_peaks(clips.double(), 1600, 12)
+
+
+@pytest.mark.parametrize("b", [8, 128])
+def test_cqt_kernel_within_1e5(clips, b):
+    """Kernel D against its plain version (float64) at the chunk sizes:
+    max|a - b| / max|b| < 1e-5 (tests/test_pallas_cqt.py)."""
+    from tpu_breath_torch.config import DEFAULT_FEATURES as SPEC
+    from tpu_breath_torch.ops.cuda import cqt_kernel as ck
+
+    g = torch.Generator(device="cuda").manual_seed(b)
+    y = torch.cat([clips, 0.05 * torch.randn(
+        b, 16000, generator=g, device="cuda")])[:b].contiguous()
+    args = (16000, 256, SPEC.cqt_fmin, 252, 36)
+    before = ck.LAUNCHES
+    got = ck.cqt_mag(y, *args)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == before + 1
+    ref = ck.cqt_mag_plain(y, *args)
+    assert got.shape == ref.shape == (b, 252, 63)
+    assert float((got - ref).abs().max() / ref.abs().max()) < 1e-5
+
+
+def test_feature_call_leaves_tf32_and_the_train_loss_alone(clips):
+    """A cached train step of an f32 CNN8 (cuDNN runs f32 convolutions in
+    TF32 by default) gives the same loss before and after a feature call,
+    which turns TF32 off only while it runs."""
+    from tpu_breath_torch import augment
+    from tpu_breath_torch.config import TrainCfg
+    from tpu_breath_torch.features import extract_features
+    from tpu_breath_torch.models import registry
+    from tpu_breath_torch.train import loop
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    batch = augment.Batch(
+        torch.randn(8, 9, 128, 63, generator=g, device="cuda"),
+        torch.randn(8, 36, generator=g, device="cuda"),
+        (torch.arange(8, device="cuda") % 2).float())
+    cfg = TrainCfg(batch_size=8)
+
+    def loss():
+        model = registry.build("cnn8", 36, seed=1, bf16=False).cuda()
+        torch.manual_seed(2)
+        return loop.train_step(model, loop.make_optimizer(model, cfg), 1e-3,
+                               batch, cfg)[0]
+
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    before = loss()
+    extract_features(clips[:2])
+    assert (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32) == flags
+    assert torch.equal(loss(), before)
+
+
+def test_fused_fit_on_card(clips, monkeypatch):
+    """A fused fit of 2 epochs on the card with TPU_BREATH_PALLAS_GT=1:
+    kernels A, B'' and C launch in its steps; a step's features equal the
+    cached features, computed at the same chunk geometry (8 clips); under
+    deterministic cuDNN its history equals the cached fit's."""
+    from tpu_breath_torch.config import DEFAULT_FEATURES as SPEC
+    from tpu_breath_torch.config import TrainCfg
+    from tpu_breath_torch.features import extract_features_batched
+    from tpu_breath_torch.models import registry
+    from tpu_breath_torch.ops.cuda import (gammatone_kernel as gk,
+                                           peaks_kernel as pk,
+                                           tuning_kernel as tk)
+    from tpu_breath_torch.train import loop
+
+    monkeypatch.setenv("TPU_BREATH_PALLAS_GT", "1")
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    w = torch.cat([clips[:2], 0.05 * torch.randn(14, 16000, generator=g,
+                                                  device="cuda")])
+    wavs = w.cpu().numpy()
+    y = (np.arange(16) % 2).astype(np.float32)
+    f, s = extract_features_batched(wavs, chunk=8, device="cuda")
+    idx = torch.from_numpy(loop.epoch_permutation(0, 0, 16)[:8]).cuda()
+    sf, ss = loop.fused_features(w[idx], SPEC)
+    assert np.array_equal(sf.cpu().numpy(), f[idx.cpu().numpy()],
+                          equal_nan=True)
+    assert np.array_equal(ss.cpu().numpy(), s[idx.cpu().numpy()],
+                          equal_nan=True)
+    cfg = TrainCfg(num_epochs=2, batch_size=8, eval_batch_size=16,
+                   warmup_epochs=1, patience=9)
+    counts = (tk.LAUNCHES, gk.LAUNCHES, pk.LAUNCHES)
+    runs = [loop.fit(registry.build("cnn8", 36), store, (f, s), y, y, cfg,
+                     log_fn=lambda *_: None, fused_spec=spec)
+            for store, spec in (((wavs, None), SPEC), ((f, s), None))]
+    # 2 epochs x 2 steps, one feature call each: A twice per call
+    assert (tk.LAUNCHES - counts[0], gk.LAUNCHES - counts[1],
+            pk.LAUNCHES - counts[2]) == (8, 4, 4)
+    for rf, rc in zip(*(r.history for r in runs)):
+        assert {k: v for k, v in rf.items() if k != "sec"} == {
+            k: v for k, v in rc.items() if k != "sec"}
+
+
+def test_features_do_not_depend_on_batch_position(clips):
+    """A clip's features and scalars are bit-equal wherever it sits in the
+    batch (the fused step's batches reproduce the cache's rows): each row
+    reduction of the scalars sums in the same order for every row."""
+    from tpu_breath_torch.features import extract_features
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    y = torch.cat([clips[:2], 0.05 * torch.randn(14, 16000, generator=g,
+                                                  device="cuda")])
+    f, s = extract_features(y)
+    for shift in (1, 3):
+        f2, s2 = extract_features(torch.roll(y, shift, 0).contiguous())
+        assert torch.equal(torch.roll(f2, -shift, 0).nan_to_num(),
+                           f.nan_to_num())
+        assert torch.equal(torch.roll(s2, -shift, 0).nan_to_num(),
+                           s.nan_to_num())
+
+
+def test_fused_step_does_not_wait_for_the_host(clips, monkeypatch):
+    """A fused step (features in chunks, augmentation draws, CNN8 forward,
+    backward, clip, AdamW) queues its work without a host synchronisation:
+    torch's sync debug mode raises on one, and the CUDA runtime's record of
+    a step holds no stream or event synchronize and no copy between host
+    and device. A first step builds the constants and the kernels: each
+    device constant's upload from host memory waits once, on its first
+    call in the process."""
+    from tpu_breath_torch import augment
+    from tpu_breath_torch.config import DEFAULT_FEATURES as SPEC
+    from tpu_breath_torch.config import TrainCfg
+    from tpu_breath_torch.models import registry
+    from tpu_breath_torch.train import loop
+
+    monkeypatch.setenv("TPU_BREATH_PALLAS_GT", "1")
+    w = clips[:8].contiguous()
+    y = (torch.arange(8, device="cuda") % 2).float()
+    cfg = TrainCfg(batch_size=8)
+    model = registry.build("cnn8", 36).cuda()
+    opt = loop.make_optimizer(model, cfg)
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def step():
+        batch = augment.Batch(*loop.fused_features(w, SPEC, chunk=4), y)
+        draws = augment.draw(g, 8, 128, 63, cfg.cutmix_alpha,
+                             cfg.mixup_alpha, "cuda")
+        return loop.train_step(model, opt, 1e-3, batch, cfg, draws)
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    # the profiler's exit synchronizes the device itself: cudaDeviceSynchronize
+    # is left out of the count
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step()
+    waits = sorted({e.name for e in prof.events() if any(
+        k in e.name for k in ("StreamSynchronize", "EventSynchronize",
+                              "HtoD", "DtoH"))})
+    assert not waits, waits

@@ -96,6 +96,33 @@ def test_silence_nans_are_faithful():
     np.testing.assert_array_equal(np.isnan(s.numpy()[0]), np.isnan(s_o))
 
 
+def test_tf32_is_off_inside_and_restored_after(y2, monkeypatch):
+    """extract_features turns TF32 off for cuBLAS and cuDNN while it runs
+    and leaves the caller's flags as they were, whatever they were (on the
+    CPU the flags can be set and read)."""
+    def flags():
+        return (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+
+    def set_flags(f):
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = f
+
+    seen = []
+    stft = spectral.stft_mag_cr
+    monkeypatch.setattr(spectral, "stft_mag_cr",
+                        lambda *a: seen.append(flags()) or stft(*a))
+    saved = flags()
+    try:
+        for want in ((True, True), (True, False), (False, True)):
+            set_flags(want)
+            features.extract_features(torch.from_numpy(y2[:1]))
+            assert flags() == want
+    finally:
+        set_flags(saved)
+    assert seen and set(seen) == {(False, False)}
+
+
 def test_matches_golden(port_out):
     f, s = port_out
     for i, path in enumerate(FIXTURES):

@@ -34,11 +34,13 @@ MODULES = {
     "__main__", "baseline", "baseline.dsp_np", "data", "data.dataset",
     "data.wav", "models", "models.cnn8", "models.convert", "models.layers",
     "models.registry", "models.vgg", "ops", "ops.cepstral", "ops.chroma",
-    "ops.cqt", "ops.cuda", "ops.cuda._build", "ops.cuda.epilogue_kernel",
+    "ops.cqt", "ops.cuda", "ops.cuda._build", "ops.cuda.cqt_kernel",
+    "ops.cuda.epilogue_kernel",
     "ops.cuda.gammatone_kernel", "ops.cuda.peaks_kernel",
     "ops.cuda.tuning_kernel", "ops.dft", "ops.lpc", "ops.peaks",
     "ops.rhythm", "ops.scalars", "ops.select", "ops.spectral", "train",
     "train.checkpoint", "train.loop", "train.metrics", "train.schedule",
+    "utils", "utils.path_times", "utils.profiling",
 }
 
 
@@ -82,6 +84,8 @@ def test_kernel_modules_import_nothing_gpu_only_at_import_time():
     script = ("import tpu_breath_torch.ops.cuda._build as b\n"
               "import tpu_breath_torch.ops.cuda.tuning_kernel\n"
               "import tpu_breath_torch.ops.cuda.gammatone_kernel\n"
+              "import tpu_breath_torch.ops.cuda.cqt_kernel\n"
+              "import tpu_breath_torch.utils.profiling\n"
               "import tpu_breath_torch.features\n"
               "assert b.lib.cache_info().currsize == 0\nprint('ok')\n")
     res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,

@@ -56,7 +56,9 @@ def beta_symmetric(g: torch.Generator, alpha: float, device) -> torch.Tensor:
     x, y = u[0] ** (1.0 / alpha), u[1] ** (1.0 / alpha)
     s = x + y
     first = torch.argmax(((s <= 1.0) & (s > 0.0)).to(torch.int8))
-    return (x / s.clamp(min=torch.finfo(torch.float64).tiny))[first].float()
+    # take, not [first]: indexing with a device scalar reads it on the host
+    return torch.take(x / s.clamp(min=torch.finfo(torch.float64).tiny),
+                      first).float()
 
 
 def draw(g: torch.Generator, b: int, h: int, w: int, cutmix_alpha: float,

@@ -1,7 +1,8 @@
 """NumPy builders of the constants the port's feature graph uses (the
 port's own copy of those functions of tpu_breath/baseline/dsp_np.py, which
 re-derives librosa 0.10): the Hann window, the Slaney mel filterbank, the
-VQT filters' FFT basis and the CQT-to-chroma map."""
+VQT filters' FFT basis, the CQT-to-chroma map and the direct CQT's kernel
+bank."""
 from __future__ import annotations
 
 import numpy as np
@@ -148,3 +149,23 @@ def cq_to_chroma(n_input: int, bins_per_octave: int, n_chroma: int,
     roll = -int(np.round(roll * (n_chroma / 12.0)))
     return np.roll(ctc, roll, axis=0)
 
+
+def cqt_kernel_bank(sr: float, fmin: float, n_bins: int, bins_per_octave: int,
+                    filter_scale: float = 1.0):
+    """Hann-windowed complex-exponential wavelet bank (librosa.filters.wavelet
+    semantics: l1-normalized, centered). Returns (kernels [n_bins, max_len]
+    complex128, lengths [n_bins])."""
+    freqs = fmin * 2.0 ** (np.arange(n_bins) / bins_per_octave)
+    Q = filter_scale / _cqt_alpha(bins_per_octave)
+    lengths = Q * sr / freqs
+    max_len = int(np.ceil(lengths.max()))
+    kernels = np.zeros((n_bins, max_len), dtype=np.complex128)
+    for k in range(n_bins):
+        ilen = lengths[k]
+        t = np.arange(-ilen // 2, ilen // 2, dtype=np.float64)
+        sig = np.exp(1j * 2 * np.pi * freqs[k] * t / sr)
+        sig = sig * hann(len(sig), periodic=True)
+        sig = sig / np.sum(np.abs(sig))
+        start = (max_len - len(sig)) // 2
+        kernels[k, start:start + len(sig)] = sig
+    return kernels, lengths

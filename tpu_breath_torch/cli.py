@@ -2,9 +2,10 @@
 precompute | train | e2e | predict, and the bare run (train + predict).
 
     python -m tpu_breath_torch precompute [--npz] [--chunk 128]
+        [--profile DIR]
     python -m tpu_breath_torch train [--archs cnn8,vgg] [--epochs N]
         [--predict] [--resume] [--seed S] [--batch-size B] [--f32]
-        [--from-npz DIR]
+        [--from-npz DIR] [--fused] [--profile DIR]
     python -m tpu_breath_torch e2e ...            # train --predict
     python -m tpu_breath_torch predict [--archs cnn8,vgg] [--from-npz DIR]
     python -m tpu_breath_torch predict --from-wav a.wav b.wav [--archs ...]
@@ -16,10 +17,17 @@ Outputs: the feature cache <root>/feature_cache_torch/, checkpoints and
 history.jsonl under <out-root>/checkpoints_torch/<arch>/, predictions
 under <out-root>/submissions/. TPU_BREATH_PALLAS_GT=1 computes the
 gammatone channel with the fused kernel B''.
+
+--fused trains from the train split's wavs: each step computes its batch's
+features on the device (train.loop.fit(fused_spec=...)); validation and
+test still come from the cache. --profile DIR writes feature_stages.json
+(precompute) or a torch.profiler trace, ops.txt and train_profile.json
+(train / e2e) into DIR (utils/profiling.py).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -34,10 +42,12 @@ from tpu_breath_torch.data import dataset as ds
 from tpu_breath_torch.data import wav as wav_io
 from tpu_breath_torch.device import resolve_device
 from tpu_breath_torch.train import checkpoint as ckpt_lib
+from tpu_breath_torch.utils import profiling
 
 ARCH_CFGS = {"cnn8": CNN8_TRAIN, "vgg": VGG_TRAIN}
-NOT_PORTED = ("--fused, --mesh, --scan, --epoch-scan and --profile of the "
-              "JAX package's CLI are not ported yet")
+NOT_PORTED = ("--mesh of the JAX package's CLI is not ported yet; --scan "
+              "and --epoch-scan are not ported (they work around the TPU "
+              "relay's dispatch latency)")
 
 
 def ckpt_dir(out_root: str, arch: str) -> str:
@@ -45,10 +55,9 @@ def ckpt_dir(out_root: str, arch: str) -> str:
 
 
 def _build_feature_store(paths: Paths, spec: FeatureSpec, device,
-                         write_npz: bool = False, chunk: int = 128
-                         ) -> ds.FeatureStore:
+                         write_npz: bool = False, chunk: int = 128):
     """wav -> feature graph on device -> FeatureStore (train rows first,
-    then test), written to the flat cache."""
+    then test), written to the flat cache. Returns (store, decoded wavs)."""
     from tpu_breath_torch.features import extract_features_batched
 
     train_rows, test_rows = ds.load_frames(paths)
@@ -80,7 +89,7 @@ def _build_feature_store(paths: Paths, spec: FeatureSpec, device,
     if write_npz:
         print(f"writing npz files to {paths.precomputed_dir}")
         store.save_npz(paths.precomputed_dir, spec)
-    return store
+    return store, wavs
 
 
 def _load_or_build_store(paths: Paths, spec: FeatureSpec, device
@@ -88,13 +97,22 @@ def _load_or_build_store(paths: Paths, spec: FeatureSpec, device
     if ds.FeatureStore.cache_exists(paths.feature_cache):
         print(f"feature cache hit: {paths.feature_cache}")
         return ds.FeatureStore.load_cache(paths.feature_cache, mmap=False)
-    return _build_feature_store(paths, spec, device)
+    return _build_feature_store(paths, spec, device)[0]
 
 
 def cmd_precompute(args) -> None:
     device = resolve_device(args.device)
-    _build_feature_store(Paths(args.root, args.out_root), DEFAULT_FEATURES,
-                         device, write_npz=args.npz, chunk=args.chunk)
+    paths = Paths(args.root, args.out_root)
+    _, wavs = _build_feature_store(paths, DEFAULT_FEATURES, device,
+                                   write_npz=args.npz, chunk=args.chunk)
+    if args.profile:
+        # the decoded wavs lead with the train rows: profile up to 2,048
+        n_train = len(ds.load_frames(paths)[0])
+        print(f"profiling feature-graph stages on {device}")
+        path = profiling.write_feature_profile(
+            args.profile, wavs[:min(2048, n_train)], chunk=args.chunk,
+            device=device)
+        print(f"stage profile written to {path}")
 
 
 def _prepare_splits(paths: Paths, spec: FeatureSpec, device,
@@ -125,19 +143,26 @@ def set_f32(device) -> None:
 
 
 def _train_one(arch: str, cfg: TrainCfg, tr, va, y_tr, y_va, paths: Paths,
-               device, resume: bool = False, f32: bool = False):
+               device, resume: bool = False, f32: bool = False,
+               fused_wavs=None):
     from tpu_breath_torch.models import registry
     from tpu_breath_torch.train import loop
 
     model = registry.build(arch, va.scalars.shape[1], seed=cfg.seed,
                            bf16=not f32)
+    if fused_wavs is None:
+        mode, train_store, fused_spec = ("cached features",
+                                         (tr.features, tr.scalars), None)
+    else:
+        mode, train_store, fused_spec = ("fused wav->train",
+                                         (fused_wavs, None), DEFAULT_FEATURES)
     print(f"training {arch} ({cfg.num_epochs} epochs, lr {cfg.base_lr}, "
-          f"batch {cfg.batch_size}, cached features, {device})", flush=True)
+          f"batch {cfg.batch_size}, {mode}, {device})", flush=True)
     save_dir = ckpt_dir(paths.out_root, arch)
-    result = loop.fit(model, (tr.features, tr.scalars),
-                      (va.features, va.scalars), y_tr, y_va, cfg,
-                      save_dir=save_dir, resume=resume, device=device,
-                      log_fn=lambda m: print(m, flush=True))
+    result = loop.fit(model, train_store, (va.features, va.scalars), y_tr,
+                      y_va, cfg, save_dir=save_dir, resume=resume,
+                      device=device, log_fn=lambda m: print(m, flush=True),
+                      fused_spec=fused_spec)
     print(f"{arch} best val acc {result.best_val_acc:.4f} @ "
           f"{result.best_ckpt_path}")
     os.makedirs(save_dir, exist_ok=True)
@@ -165,12 +190,30 @@ def cmd_train(args) -> None:
     if args.f32:
         set_f32(device)
     paths = Paths(args.root, args.out_root)
-    tr, va, te, y_tr, y_va = _prepare_splits(paths, DEFAULT_FEATURES, device,
+    spec = DEFAULT_FEATURES
+    tr, va, te, y_tr, y_va = _prepare_splits(paths, spec, device,
                                              npz_dir=args.from_npz)
-    results = {arch: _train_one(arch, _arch_cfg(arch, args), tr, va, y_tr,
-                                y_va, paths, device, resume=args.resume,
-                                f32=args.f32)
-               for arch in args.archs.split(",")}
+    fused_wavs = None
+    if args.fused:
+        print("fused mode: training from the train split's wavs")
+        errors: list = []  # a failed clip is zeros, as in precompute
+        fused_wavs = wav_io.load_wav_batch(
+            [os.path.join(paths.train_audio_dir, ds.train_wav_name(i))
+             for i in tr.ids], spec.expected_len, errors=errors)
+        for path, msg in errors:
+            print(f"error: {path}: {msg}")
+    with (profiling.trace(args.profile, device) if args.profile
+          else contextlib.nullcontext()):
+        results = {arch: _train_one(arch, _arch_cfg(arch, args), tr, va,
+                                    y_tr, y_va, paths, device,
+                                    resume=args.resume, f32=args.f32,
+                                    fused_wavs=fused_wavs)
+                   for arch in args.archs.split(",")}
+    if args.profile:
+        print(f"profiler trace written to {args.profile}")
+        path = profiling.write_train_profile(
+            args.profile, {a: r.history for a, r in results.items()})
+        print(f"train profile written to {path}")
     if args.predict:
         ckpts = [r.best_ckpt_path for r in results.values()]
         if None in ckpts:
@@ -254,6 +297,9 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--npz", action="store_true",
                     help="also write per-clip .npz files")
     sp.add_argument("--chunk", type=int, default=128)
+    sp.add_argument("--profile", default=None, metavar="DIR",
+                    help="time each feature-graph stage on up to 2,048 "
+                         "train clips -> DIR/feature_stages.json")
     sp.set_defaults(fn=cmd_precompute)
 
     for name, fn in (("train", cmd_train), ("e2e", cmd_e2e)):
@@ -275,6 +321,12 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--from-npz", dest="from_npz", default=None,
                         metavar="DIR", help="read per-clip .npz features "
                                             "instead of the feature cache")
+        sp.add_argument("--fused", action="store_true",
+                        help="train from the wavs: each step computes its "
+                             "batch's features on the device")
+        sp.add_argument("--profile", default=None, metavar="DIR",
+                        help="torch.profiler trace of the training run and "
+                             "per-epoch times -> DIR")
         sp.set_defaults(fn=fn)
 
     sp = sub.add_parser("predict", epilog=NOT_PORTED)
@@ -296,7 +348,7 @@ def main(argv=None) -> None:
                                 npz=False, chunk=128, archs="cnn8,vgg",
                                 epochs=0, predict=True, resume=False,
                                 seed=None, batch_size=0, f32=False,
-                                from_npz=None)
+                                from_npz=None, fused=False, profile=None)
         (cmd_precompute if args.precompute else cmd_train)(ns)
         return
     args.fn(args)

@@ -65,8 +65,12 @@ def extract_features(y: torch.Tensor, spec: FeatureSpec = DEFAULT_FEATURES,
         raise ValueError(f"y {tuple(y.shape)}: want [B, n_samples]")
     if fused_gt is None:
         fused_gt = os.environ.get("TPU_BREATH_PALLAS_GT", "0") == "1"
-    spectral.disable_tf32()
-    y = y.float()
+    with spectral.full_f32():
+        return _extract(y.float(), spec, fused_gt)
+
+
+def _extract(y: torch.Tensor, spec: FeatureSpec, fused_gt: bool
+             ) -> tuple[torch.Tensor, torch.Tensor]:
     sr, hop, n_fft = spec.sr, spec.hop_length, spec.n_fft
 
     # mel + deltas

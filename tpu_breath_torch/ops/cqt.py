@@ -6,6 +6,9 @@ one tuning-gathered time-domain kernel [2*bpo, n_fft]; between octaves
 decimate 2:1 with scipy's resample_poly FIR. The per-clip tuning comes from
 the same piptrack + kernel A chain as chroma_stft, at bins_per_octave 36.
 The transforms run in float64 and the magnitude is rounded to f32 once.
+
+cqt_mag is the direct single-GEMM |CQT| at tuning 0 that the JAX package
+keeps for comparison (kernel D's function); no feature uses it.
 """
 from __future__ import annotations
 
@@ -101,6 +104,53 @@ def cqt_mag_multirate(y: torch.Tensor, tuning_idx: torch.Tensor, sr: int,
             my_y = decimate2(my_y)
     n_frames = min(oc.shape[-1] for oc in octaves)
     return torch.cat([oc[..., :n_frames] for oc in octaves[::-1]], dim=-2)
+
+
+@functools.lru_cache(maxsize=None)
+def _direct_consts(sr: int, fmin: float, n_bins: int, bins_per_octave: int
+                   ) -> tuple[np.ndarray, np.ndarray, int]:
+    """(conj(kernels) packed (re | im) [2*n_bins, L_pad] float64 with L_pad
+    a multiple of 128, 1/sqrt(length) [n_bins], half the kernel length):
+    tpu_breath/ops/cqt.py::_kernel_consts without the f32 rounding."""
+    kernels, lengths = _oracle.cqt_kernel_bank(sr, fmin, n_bins,
+                                               bins_per_octave)
+    max_len = kernels.shape[1]
+    k = np.zeros((n_bins, -(-max_len // 128) * 128), np.complex128)
+    k[:, :max_len] = np.conj(kernels)
+    return (np.concatenate([k.real, k.imag]), 1.0 / np.sqrt(lengths),
+            max_len // 2)
+
+
+def _direct_bank(*key) -> np.ndarray:
+    return _direct_consts(*key)[0]
+
+
+def _direct_inv_sqrt(*key) -> np.ndarray:
+    return _direct_consts(*key)[1]
+
+
+def cqt_mag(y: torch.Tensor, sr: int, hop_length: int, fmin: float,
+            n_bins: int, bins_per_octave: int) -> torch.Tensor:
+    """Direct |CQT| (librosa scale=True, tuning 0) of y[B, n] -> f32
+    [B, n_bins, 1 + n//hop]: hop-strided frames [B, T, L_pad] of y padded
+    by half a kernel on the left, times the conjugate bank, in float64;
+    the scaled magnitude is rounded to f32 once. Kernel D's plain
+    version."""
+    key = (sr, fmin, n_bins, bins_per_octave)
+    bank = spectral.device_const(_direct_bank, *key, device=y.device,
+                                 dtype=torch.float64)
+    inv_sqrt = spectral.device_const(_direct_inv_sqrt, *key,
+                                     device=y.device, dtype=torch.float64)
+    half = _direct_consts(*key)[2]
+    l_pad = bank.shape[-1]
+    n_frames = 1 + y.shape[-1] // hop_length
+    ypad = torch.nn.functional.pad(y.double(), (half, l_pad))
+    frames = spectral.frame_signal(ypad, l_pad, hop_length, n_frames)
+    resp = frames.reshape(-1, l_pad) @ bank.T           # [B*T, 2*n_bins]
+    re, im = resp[:, :n_bins], resp[:, n_bins:]
+    mag = torch.sqrt(re * re + im * im) * inv_sqrt
+    return mag.reshape(y.shape[0], n_frames, n_bins).transpose(-1, -2
+                                                               ).float()
 
 
 @functools.lru_cache(maxsize=None)

@@ -6,7 +6,21 @@ rounded once to f32, i.e. scipy's own definition.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
+
+from tpu_breath_torch.ops import spectral
+
+
+@functools.lru_cache(maxsize=None)
+def _hilbert_weights(n: int) -> np.ndarray:
+    """scipy.signal.hilbert's spectral weights for an even length n."""
+    h = np.zeros(n)
+    h[0] = h[n // 2] = 1.0
+    h[1:n // 2] = 2.0
+    return h
 
 
 def hilbert_envelope(y: torch.Tensor) -> torch.Tensor:
@@ -16,9 +30,8 @@ def hilbert_envelope(y: torch.Tensor) -> torch.Tensor:
     if n % 2:
         raise ValueError(f"hilbert_envelope takes an even length, got {n}")
     spec = torch.fft.fft(y.double(), dim=-1)
-    h = torch.zeros(n, dtype=torch.float64, device=y.device)
-    h[0] = h[n // 2] = 1.0
-    h[1:n // 2] = 2.0
+    h = spectral.device_const(_hilbert_weights, n, device=y.device,
+                              dtype=torch.float64)
     return torch.fft.ifft(spec * h, dim=-1).abs().float()
 
 

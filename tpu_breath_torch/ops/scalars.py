@@ -44,21 +44,42 @@ def _freqs(sr: int, n_fft: int) -> np.ndarray:
     return np.linspace(0, sr / 2, 1 + n_fft // 2, dtype=np.float32)[:, None]
 
 
+def _sum_last(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in the same order for every row of a batch.
+
+    CUDA's row reduction reads 16 bytes at a time from the first aligned
+    element of a row, so a row that starts off a 16-byte boundary (row b of
+    [B, 63] starts at 252 * b bytes) is summed in another order, and a
+    clip's scalars would depend on its place in the batch: the fused step's
+    batches would not reproduce the cache. Zero-padding the axis to a
+    multiple of 4 aligns every row alike; adding zeros changes no sum."""
+    pad = (-x.shape[-1]) % 4
+    x = torch.nn.functional.pad(x, (0, pad)) if pad else x.contiguous()
+    return x.sum(dim=-1)
+
+
+def _sum_freq(S: torch.Tensor) -> torch.Tensor:
+    """Sum over the frequency axis of [..., F, T], in the same order for
+    every clip of a batch (see _sum_last: the time-major |STFT| keeps F
+    contiguous in rows of 1,025 values)."""
+    return _sum_last(S.movedim(-2, -1))
+
+
 def _l1_norm_cols(S: torch.Tensor) -> torch.Tensor:
-    length = torch.sum(S.abs(), dim=-2, keepdim=True)
+    length = _sum_freq(S.abs())[..., None, :]
     return S / torch.where(length < _TINY, 1.0, length)
 
 
 def spectral_centroid(S: torch.Tensor, sr: int, n_fft: int) -> torch.Tensor:
     freq = spectral.device_const(_freqs, sr, n_fft, device=S.device)
-    return torch.sum(freq * _l1_norm_cols(S), dim=-2)
+    return _sum_freq(freq * _l1_norm_cols(S))
 
 
 def spectral_bandwidth(S: torch.Tensor, sr: int, n_fft: int) -> torch.Tensor:
     """p = 2 bandwidth around the centroid."""
     freq = spectral.device_const(_freqs, sr, n_fft, device=S.device)
     dev = (freq - spectral_centroid(S, sr, n_fft)[..., None, :]).abs()
-    return torch.sum(_l1_norm_cols(S) * dev ** 2.0, dim=-2) ** 0.5
+    return _sum_freq(_l1_norm_cols(S) * dev ** 2.0) ** 0.5
 
 
 def spectral_rolloff(S: torch.Tensor, sr: int, n_fft: int) -> torch.Tensor:
@@ -72,8 +93,9 @@ def spectral_rolloff(S: torch.Tensor, sr: int, n_fft: int) -> torch.Tensor:
 def spectral_flatness(S: torch.Tensor) -> torch.Tensor:
     """Flatness of the power spectrum (amin 1e-10)."""
     S_thresh = torch.clamp(S ** 2.0, min=1e-10)
-    gmean = torch.exp(torch.mean(torch.log(S_thresh), dim=-2))
-    return gmean / torch.mean(S_thresh, dim=-2)
+    n = S.shape[-2]
+    gmean = torch.exp(_sum_freq(torch.log(S_thresh)) / n)
+    return gmean / (_sum_freq(S_thresh) / n)
 
 
 @functools.lru_cache(maxsize=None)
@@ -125,12 +147,12 @@ def _row_sum_stable(x: torch.Tensor) -> torch.Tensor:
     :142-169)."""
     n = x.shape[-1]
     if n <= _STABLE_SUM_MAX:
-        return x.sum(dim=-1)
+        return _sum_last(x)
     pad = (-n) % _STABLE_SUM_SPLIT
     if pad:
         x = torch.nn.functional.pad(x, (0, pad))
     parts = x.reshape(*x.shape[:-1], -1, _STABLE_SUM_SPLIT)
-    return parts.sum(dim=-1).sum(dim=-1)
+    return _sum_last(parts.sum(dim=-1))
 
 
 def _skew(x: torch.Tensor) -> torch.Tensor:
@@ -156,8 +178,9 @@ def _kurtosis(x: torch.Tensor) -> torch.Tensor:
 
 
 def _mstd(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    mean = x.mean(dim=-1)
-    var = (x - mean[..., None]).square().mean(dim=-1)
+    n = x.shape[-1]
+    mean = _sum_last(x) / n
+    var = _sum_last((x - mean[..., None]).square()) / n
     return mean, torch.sqrt(var)
 
 
@@ -200,8 +223,8 @@ def extract_scalars(y: torch.Tensor, sr: int = 16_000, hop_length: int = 256,
         stft512_mag = spectral.stft_mag(y, n_fft, hop_length)
     low_bins = int(1000 * n_fft / sr)
     p512 = stft512_mag * stft512_mag
-    low_e = p512[..., :low_bins, :].sum(dim=(-2, -1))
-    low_ratio = low_e / (p512.sum(dim=(-2, -1)) + 1e-8)
+    low_e = _sum_last(p512[..., :low_bins, :].flatten(-2))
+    low_ratio = low_e / (_sum_last(p512.flatten(-2)) + 1e-8)
 
     mel = mel2048_power
     if mel is None:

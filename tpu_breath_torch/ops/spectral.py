@@ -8,6 +8,7 @@ float64, and the oracle (baseline/dsp_np) defines |S| as f32(|STFT_f64|).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -16,11 +17,21 @@ import torch
 from tpu_breath_torch.baseline import dsp_np as _oracle
 
 
-def disable_tf32() -> None:
-    """The feature path runs its f32 products in full f32, like the JAX
-    package's Precision.HIGHEST; TF32 keeps ~3 decimal digits."""
+@contextlib.contextmanager
+def full_f32():
+    """TF32 off for cuBLAS and cuDNN inside the block, the caller's flags
+    restored on exit: the feature path runs its f32 products in full f32,
+    like the JAX package's Precision.HIGHEST (TF32 keeps ~3 decimal
+    digits), and leaves the model's numerics to the model."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
 
 
 @functools.lru_cache(maxsize=None)

@@ -3,7 +3,8 @@ single-device resident path): BCE on logits, global-norm clipping, AdamW
 with a warmup-cosine rate, CutMix/MixUp, early stopping on val accuracy,
 best checkpoints and faithful resume.
 
-- The train split lives on the device; a step gathers its batch by index.
+- The train split lives on the device; a step gathers its batch by index:
+  features, or in fused mode wavs that the step turns into features.
 - Batch order is the JAX package's: epoch e shuffles with
   np.random.default_rng([seed + 1, e]).permutation(n), drop-last batches.
 - Every other random draw of epoch e (augmentation, dropout) comes from
@@ -20,10 +21,12 @@ import time
 import numpy as np
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from tpu_breath_torch import augment
-from tpu_breath_torch.config import TrainCfg
+from tpu_breath_torch.config import FeatureSpec, TrainCfg
 from tpu_breath_torch.device import resolve_device
+from tpu_breath_torch.features import extract_features
 from tpu_breath_torch.train import checkpoint as ckpt_lib
 from tpu_breath_torch.train import metrics as metrics_mod
 from tpu_breath_torch.train.schedule import warmup_cosine
@@ -137,13 +140,34 @@ def _snapshot(model: nn.Module) -> dict:
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
+def fused_features(wavs: torch.Tensor, spec: FeatureSpec, chunk: int = 128
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused step's features of a gathered batch wavs [b, n]: chunks of
+    `chunk` clips (precompute's geometry) when b is a larger multiple of
+    it, else one call (tpu_breath/train/loop.py::_maybe_fused_features)."""
+    b = wavs.shape[0]
+    if b > chunk and b % chunk == 0:
+        parts = [extract_features(wavs[lo:lo + chunk], spec)
+                 for lo in range(0, b, chunk)]
+        return (torch.cat([f for f, _ in parts]),
+                torch.cat([s for _, s in parts]))
+    return extract_features(wavs, spec)
+
+
 def fit(model: nn.Module, train_store, val_store, train_labels, val_labels,
         cfg: TrainCfg, save_dir: str | None = None, log_fn=print,
-        resume: bool = False, device="cuda") -> FitResult:
+        resume: bool = False, device="cuda",
+        fused_spec: FeatureSpec | None = None) -> FitResult:
     """Full training run with early stopping and best-checkpoint saves.
 
     train_store / val_store: (features [N, C, H, W], scalars [N, S]) numpy
-    arrays. Runs on `device` (the card unless device='cpu')."""
+    arrays. Runs on `device` (the card unless device='cpu').
+
+    Fused mode (fused_spec given): train_store is (wavs [N, n_samples],
+    None), the wavs stay on the device, and each step computes its batch's
+    features with fused_features before the unchanged train_step; the
+    validation split stays precomputed. Batch order, augmentation and
+    dropout draws are the cached mode's."""
     device = resolve_device(device)
     n_train = len(train_labels)
     b = cfg.batch_size
@@ -155,10 +179,14 @@ def fit(model: nn.Module, train_store, val_store, train_labels, val_labels,
         return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
             device)
 
-    feats_tr, scals_tr = put(train_store[0]), put(train_store[1])
+    if fused_spec is None:
+        feats_tr, scals_tr = put(train_store[0]), put(train_store[1])
+        _, _, h, w = feats_tr.shape
+    else:
+        wavs_tr = put(train_store[0])
+        h, w = fused_spec.n_mels, fused_spec.t_fixed
     labels_tr = put(train_labels)
     feats_va, scals_va = put(val_store[0]), put(val_store[1])
-    _, _, h, w = feats_tr.shape
 
     model.to(device)
     optimizer = make_optimizer(model, cfg)
@@ -196,14 +224,21 @@ def fit(model: nn.Module, train_store, val_store, train_labels, val_labels,
         with torch.random.fork_rng(devices=cuda_devices):
             torch.manual_seed(drop_seed)  # dropout masks
             for s in range(steps_per_epoch):
-                idx = perm[s * b:(s + 1) * b]
-                batch = augment.Batch(feats_tr[idx], scals_tr[idx],
-                                      labels_tr[idx])
-                draws = (augment.draw(gen, b, h, w, cfg.cutmix_alpha,
-                                      cfg.mixup_alpha, device)
-                         if use_aug else None)
-                loss, acc = train_step(model, optimizer, schedule(step),
-                                       batch, cfg, draws)
+                # the ranges name a step's spans in a --profile trace
+                with record_function("train_step"):
+                    idx = perm[s * b:(s + 1) * b]
+                    if fused_spec is None:
+                        feats, scals = feats_tr[idx], scals_tr[idx]
+                    else:
+                        with record_function("fused_features"):
+                            feats, scals = fused_features(wavs_tr[idx],
+                                                          fused_spec)
+                    batch = augment.Batch(feats, scals, labels_tr[idx])
+                    draws = (augment.draw(gen, b, h, w, cfg.cutmix_alpha,
+                                          cfg.mixup_alpha, device)
+                             if use_aug else None)
+                    loss, acc = train_step(model, optimizer, schedule(step),
+                                           batch, cfg, draws)
                 step += 1
                 losses.append(loss)
                 accs.append(acc)
