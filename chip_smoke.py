@@ -11,8 +11,9 @@ no result line):
   3. each kernel (A, B, B', B'', C, D) against its plain PyTorch version on
      the card, at the main path's shapes with B = 8 and B = 128 (golden wavs
      + seeded noise, silence, an impulse, quantized plateaus), with times
-     and the least time the card could take (bound); D, on no path (as in
-     the JAX package), at the shapes of its function, beside conv1d;
+     and the least time the card could take (bound); B'''s rows of the
+     clips both sizes share must be bit-equal; D, on no path (as in the
+     JAX package), at the shapes of its function, beside conv1d;
   4. extract_features on the card for the golden wavs, against the golden
      npz and the port's CPU result; with fused_gt (kernel B'') against the
      default path;
@@ -41,6 +42,7 @@ no result line):
 from __future__ import annotations
 
 import contextlib
+import functools
 import glob
 import io
 import json
@@ -76,11 +78,40 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() in ms over `iters` back-to-back calls."""
+@functools.lru_cache(maxsize=None)
+def spin_cycles_per_ms() -> float:
+    """The card's clock cycles per ms, from one timed spin kernel."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10_000_000)
+    end.record()
+    end.synchronize()
+    return 10_000_000 / start.elapsed_time(end)
+
+
+def hold_stream(ms: float) -> None:
+    """Queue a spin kernel that holds the current stream for about ms."""
+    torch.cuda._sleep(int(ms * spin_cycles_per_ms()))
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3,
+            primed: bool = False) -> float:
+    """Mean time of fn() in ms over `iters` back-to-back calls, by CUDA
+    events. Unprimed (the kernel table's timer), a call that the host
+    queues more slowly than the card runs it is timed at the host's pace.
+    primed: a spin kernel first holds the stream for longer than the host
+    takes to queue the calls, so the card runs them back to back and the
+    time is the card's alone."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if primed:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        hold_stream(2e3 * (time.perf_counter() - t0) + 1.0)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -235,6 +266,8 @@ def phase_kernels() -> dict:
 
     rounds = SR // (SR // 10) + 2
     res = {k: {"err": 0.0} for k in ("A", "B", "B'", "B''", "C", "D")}
+    n_shared = len(golden()) + 2  # clip_set's first clips at every size
+    gt_rows = {}
     for b in (MICRO, CHUNK):
         y = torch.from_numpy(clip_set(b, seed=b)).cuda()
         x = kernel_inputs(y)
@@ -272,6 +305,7 @@ def phase_kernels() -> dict:
                 raise AssertionError(f"kernel {k} B {b}: max abs err "
                                      f"{errs[k]} > {tol}")
             res[k]["err"] = max(res[k]["err"], errs[k])
+        gt_rows[b] = out["B''"][0][:n_shared]
         (vals, kept), (rvals, rkept) = out["C"]
         err_c = float((vals - rvals).abs().max())
         if not torch.equal(kept, rkept) or not err_c <= 1e-5:
@@ -301,10 +335,19 @@ def phase_kernels() -> dict:
             res[k][b] = (cuda_ms(run), cuda_ms(plain))
             bound, by = res["bound", b][k]
             log(f"[time] kernel {k} B={b}: {res[k][b][0]:.4f} ms, plain "
-                f"{res[k][b][1]:.4f} ms, bound {bound:.4f} ms ({by})")
+                f"{res[k][b][1]:.4f} ms, bound {bound:.4f} ms ({by}); "
+                f"stream primed: {cuda_ms(run, primed=True):.4f} ms, plain "
+                f"{cuda_ms(plain, primed=True):.4f} ms")
         res["D", "library", b] = cuda_ms(cqt_conv1d(y))
         log(f"[time] kernel D B={b}: library conv1d (f32, TF32 off; the "
             f"complex response without |.|) {res['D', 'library', b]:.4f} ms")
+    # B'' computes each clip alone: the clips both sizes share give the
+    # same bits (the fused step's features equal the cache's rows)
+    if not torch.equal(gt_rows[MICRO], gt_rows[CHUNK]):
+        raise AssertionError(f"kernel B'': the {n_shared} shared clips' rows "
+                             f"differ between B = {MICRO} and B = {CHUNK}")
+    log(f"[kernels] B'': the rows of the {n_shared} clips B = {MICRO} and "
+        f"B = {CHUNK} share (golden wavs, silence, impulse) are bit-equal")
     return res
 
 
@@ -792,6 +835,14 @@ def phase_profile(tmp: str) -> None:
         for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
             log(f"[profile]   {part:8s} {us / max(total, 1e-9):6.1%} of the "
                 f"step {us / 1e3 / n_steps:8.3f} ms/step  {name[:100]}")
+    # the path's kernels of this port, by the name of their __global__
+    for k, fn in (("A", "tuning_tail_kernel"), ("B''", "gammatone_kernel"),
+                  ("C", "suppress_kernel")):
+        mine = [e for e in feat if fn in e["name"]]
+        us = sum(e["dur"] for e in mine)
+        log(f"[profile]   kernel {k}: {us / max(total, 1e-9):.2%} of the "
+            f"step, {us / 1e3 / n_steps:.3f} ms/step in "
+            f"{len(mine) / n_steps:.0f} launches/step")
 
 
 def phase_times(serve: dict, e2e: dict, fused: dict) -> None:

@@ -48,6 +48,97 @@ def test_tuning_kernel_exact(clips):
             p.cpu(), m.cpu(), bpo))
 
 
+def _adversarial_pairs(n: int, seed: int) -> tuple[np.ndarray, ...]:
+    """Rows of (pitch, mag) pairs that stress the order statistics: no valid
+    pitch, one, two (k even), k even and odd, equal, negative and signed-zero
+    magnitudes, heavy ties, every pitch valid. -> pitches, mags [9, n]."""
+    rng = np.random.default_rng(seed)
+    half = np.zeros(n, bool)
+    half[rng.choice(n, n // 2 - (n // 2) % 2, replace=False)] = True
+    odd = half.copy()
+    odd[np.flatnonzero(~half)[0]] = True
+    few = [np.zeros(n, bool) for _ in range(3)]
+    few[1][rng.integers(n)] = True
+    few[2][rng.choice(n, 2, replace=False)] = True
+    mags = rng.standard_normal(n) ** 2
+    zeros = np.where(rng.random(n) < 0.5, 0.0, -0.0)
+    zeros[rng.choice(n, 7, replace=False)] = 0.5
+    rows = [(few[0], mags), (few[1], mags), (few[2], mags), (half, mags),
+            (odd, mags), (half, np.full(n, 0.25)), (half, -mags),
+            (half, zeros), (np.ones(n, bool), np.round(mags * 4) / 4)]
+    pitch = rng.uniform(30.0, 4000.0, (len(rows), n))
+    p = np.stack([np.where(v, pitch[i], 0.0) for i, (v, _) in enumerate(rows)])
+    m = np.stack([mg for _, mg in rows])
+    return p.astype(np.float32), m.astype(np.float32)
+
+
+@pytest.mark.parametrize("n", [7875, 15808, 28_000])
+def test_tuning_kernel_exact_on_adversarial_pairs(clips, n):
+    """Kernel A equals its plain version exactly on pair sets built to
+    break an order statistic, at bpo 12's and 36's pair counts and at
+    MAX_PAIRS; no valid pitch gives 50."""
+    from tpu_breath_torch.ops.cuda import tuning_kernel as tk
+
+    assert n <= tk.MAX_PAIRS
+    p, m = (torch.from_numpy(a).cuda() for a in _adversarial_pairs(n, n))
+    for bpo in (12, 36):
+        got = tk.estimate_tuning_index(p, m, bpo)
+        torch.cuda.synchronize()
+        ref = tk.estimate_tuning_index_plain(p, m, bpo)
+        assert torch.equal(got, ref), (bpo, got.tolist(), ref.tolist())
+        assert int(got[0]) == 50
+
+
+def _gammatone_inputs(y: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Kernel B''s inputs for clips y, as the feature graph builds them."""
+    from tpu_breath_torch.ops import spectral
+
+    yp = torch.nn.functional.pad(y, (256, 256))
+    frames = spectral.frame_signal(yp, 512, 256, 63).contiguous()
+    basis = spectral.device_const(spectral.framedft_basis, 512,
+                                  device=y.device)
+    fb = spectral.device_const(spectral.mel_matrix, 16000, 512, 64,
+                               device=y.device)
+    return frames, basis, fb
+
+
+def _batch(clips: torch.Tensor, b: int, seed: int) -> torch.Tensor:
+    """The fixture's clips, then seeded noise, to b clips."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    noise = 0.05 * torch.randn(b, 16000, generator=g, device="cuda")
+    return torch.cat([clips, noise])[:b].contiguous()
+
+
+@pytest.mark.parametrize("b", [1, 8, 128, 130])
+def test_gammatone_kernel_vs_plain_at_batch(clips, b):
+    """Kernel B'' within 1e-5 of its plain version at B = 1, 8, 128 and
+    130 (a batch that fills no whole wave of clusters)."""
+    from tpu_breath_torch.ops.cuda import gammatone_kernel as gk
+
+    args = _gammatone_inputs(_batch(clips, b, seed=b))
+    got = gk.fused_gammatone(*args)
+    torch.cuda.synchronize()
+    ref = gk.fused_gammatone_plain(*args)
+    assert got.shape == (b, 64, 63)
+    assert float((got - ref).abs().max()) <= 1e-5
+
+
+def test_gammatone_rows_do_not_depend_on_batch(clips):
+    """A clip's B'' rows are bit-equal alone (B = 1), as row 0 of a batch
+    of 128 and as its row 77: the fused step and the cache give the same
+    features wherever a clip sits."""
+    from tpu_breath_torch.ops.cuda import gammatone_kernel as gk
+
+    y = _batch(clips, 128, seed=5)
+    for c in (0, 3, 6):  # a golden clip, quiet noise, silence
+        one = gk.fused_gammatone(*_gammatone_inputs(y[c:c + 1]))
+        for row in (0, 77):
+            yb = y.clone()
+            yb[[row, c]] = yb[[c, row]]
+            got = gk.fused_gammatone(*_gammatone_inputs(yb))
+            assert torch.equal(got[row], one[0]), (c, row)
+
+
 def test_epilogue_kernel_within_1e5(clips):
     from tpu_breath_torch.ops import spectral
     from tpu_breath_torch.ops.cuda import epilogue_kernel as ek
@@ -77,6 +168,16 @@ def test_epilogue_f32_variant_within_5e5(clips):
     with spectral.full_f32():
         ref = ek.fused_epilogue_plain(mag, fb, plain=True)
     assert float((got - ref).abs().max()) <= 5e-5
+
+
+def test_gammatone_kernel_rejects_a_basis_it_did_not_tile(clips):
+    """B'' reads the basis as tiled_basis laid it out once per device: a
+    copy of the basis, equal but not the device constant, is refused."""
+    from tpu_breath_torch.ops.cuda import gammatone_kernel as gk
+
+    frames, basis, fb = _gammatone_inputs(clips)
+    with pytest.raises(ValueError):
+        gk.fused_gammatone(frames, basis.clone(), fb)
 
 
 def test_gammatone_kernel_within_1e5(clips):

@@ -203,6 +203,24 @@ def test_fused_gt_from_env(monkeypatch, clips):
         assert len(calls) == want, (env, fused_gt)
 
 
+def test_tiled_basis_undoes_to_framedft_basis():
+    """Kernel B''s basis relayout: entry [r, s, w, ri, i, lane] is basis[8 s
+    + 4 i + lane % 4, ri F + 88 r + 8 w + lane // 4], zero past F, and
+    undoing it gives back framedft_basis(512) exactly."""
+    basis = spectral.framedft_basis(SPEC.n_fft)
+    k, f = basis.shape[0], basis.shape[1] // 2
+    tiles = gammatone_kernel.tiled_basis(SPEC.n_fft)
+    assert tiles.shape == (3, k // 8, 11, 2, 2, 32)
+    assert tiles.dtype == np.float32
+    r, s, w, ri, i, lane = np.indices(tiles.shape)
+    kk, ff = 8 * s + 4 * i + lane % 4, 88 * r + 8 * w + lane // 4
+    real = ff < f
+    assert not tiles[~real].any()
+    back = np.full_like(basis, np.nan)
+    back[kk[real], (ri * f + ff)[real]] = tiles[real]
+    np.testing.assert_array_equal(back, basis)
+
+
 def test_gammatone_wrapper_rejects_bad_shapes():
     with pytest.raises(ValueError):
         gammatone_kernel.fused_gammatone(torch.zeros(1, 63, 512),

@@ -160,6 +160,95 @@ def test_hist_edges_match_jax():
                                   jx_chroma._hist_edges_f32(100))
 
 
+def _ordered_u32(x: np.ndarray) -> np.ndarray:
+    """The kernel's order-preserving map of f32 to u32."""
+    b = np.asarray(x, np.float32).view(np.int32)
+    return np.where(b < 0, ~b, b ^ np.int32(-2**31)).view(np.uint32)
+
+
+def _u32_f32(u: np.ndarray) -> np.ndarray:
+    i = np.asarray(u, np.uint32).view(np.int32)
+    return np.where(i < 0, i ^ np.int32(-2**31), ~i).view(np.float32)
+
+
+INF_KEY = 0xFF800000  # the key of +inf
+
+
+def _radix_rank(keys: np.ndarray, n_inf: int, rank: int) -> int:
+    """A numpy model of csrc/tuning_kernel.cu::select_rank: the key of
+    `rank` among the valid pairs' u32 keys and n_inf more keys of +inf (the
+    masked pairs), fixed by 4 passes of 8-bit digits from the top; each
+    pass counts the keys that match the digits fixed so far."""
+    keys = keys.astype(np.int64)
+    prefix = fixed = 0
+    for shift in (24, 16, 8, 0):
+        live = keys[(keys & fixed) == prefix]
+        counts = np.bincount((live >> shift) & 255, minlength=256)
+        if n_inf and (INF_KEY & fixed) == prefix:
+            counts[(INF_KEY >> shift) & 255] += n_inf
+        incl = np.cumsum(counts)
+        digit = int(np.argmax(incl > rank))  # the first bin past `rank`
+        rank -= int(incl[digit] - counts[digit])
+        prefix |= digit << shift
+        fixed |= 255 << shift
+    return prefix
+
+
+def _median_pair(keys: np.ndarray, n_inf: int) -> tuple[int, int]:
+    """The kernel's ranks (k-1)//2 and k//2 of k valid keys: the second
+    from the first by one count of the keys <= it and the least key above
+    it."""
+    k = len(keys)
+    lo = _radix_rank(keys, n_inf, (k - 1) // 2)
+    if k // 2 == (k - 1) // 2:
+        return lo, lo
+    le = int((keys <= lo).sum()) + (n_inf if INF_KEY <= lo else 0)
+    above = list(keys[keys > lo]) + ([INF_KEY] if n_inf and INF_KEY > lo
+                                     else [])
+    return lo, (lo if le > k // 2 else int(min(above)))
+
+
+def _key_sets():
+    """(name, mags, valid) sets, random and adversarial."""
+    rng = np.random.default_rng(17)
+    n = 2000
+    half = rng.random(n) < 0.5
+    yield "random", rng.standard_normal(n) * 10, half
+    yield "ties", np.round(rng.standard_normal(n) * 2) / 4, half
+    yield "all equal", np.full(n, 0.375), half
+    yield "negative", -rng.random(n) - 1e-3, half
+    yield "signed zeros", np.where(rng.random(n) < 0.5, 0.0, -0.0), half
+    yield "wide exponents", 10.0 ** rng.uniform(-30, 30, n), half
+    yield "valid infinities", np.where(rng.random(n) < 0.6, np.inf,
+                                       rng.standard_normal(n)), half
+    for k in (0, 1, 2, 3):
+        valid = np.zeros(n, bool)
+        valid[rng.choice(n, k, replace=False)] = True
+        yield f"k={k}", rng.standard_normal(n), valid
+    yield "all valid", rng.standard_normal(n), np.ones(n, bool)
+
+
+@pytest.mark.parametrize("case", [c[0] for c in _key_sets()])
+def test_radix_median_model_equals_sort(case):
+    """Kernel A's order-statistic scheme (modelled in numpy: the valid keys
+    compacted, the masked pairs a count of +inf keys) gives the keys that
+    np.sort puts at ranks (k-1)//2 and k//2 of all pairs, masked ones keyed
+    +inf, and their f32 mean is the plain version's masked median."""
+    _, mags, valid = next(c for c in _key_sets() if c[0] == case)
+    mags = mags.astype(np.float32)
+    k = int(valid.sum())
+    srt = np.sort(_ordered_u32(np.where(valid, mags, np.float32(np.inf))))
+    if k == 0:
+        return  # the kernel skips the select; thresh is 0, index 50
+    lo, hi = _median_pair(_ordered_u32(mags[valid]), len(mags) - k)
+    assert (lo, hi) == (srt[(k - 1) // 2], srt[k // 2])
+    as_f32 = lambda u: np.float32(_u32_f32(np.uint32(u)))
+    thresh = np.float32(0.5) * (as_f32(lo) + as_f32(hi))
+    ref = select.masked_median(torch.from_numpy(mags[None]),
+                               torch.from_numpy(valid[None]))
+    assert thresh == ref.numpy()[0]
+
+
 def test_wrapper_rejects_bad_shapes():
     with pytest.raises(ValueError):
         tuning_kernel.estimate_tuning_index(torch.zeros(2, 3, 4),
