@@ -11,9 +11,11 @@ no result line):
   3. each kernel (A, B, B', B'', C, D) against its plain PyTorch version on
      the card, at the main path's shapes with B = 8 and B = 128 (golden wavs
      + seeded noise, silence, an impulse, quantized plateaus), with times
-     and the least time the card could take (bound); B'''s rows of the
-     clips both sizes share must be bit-equal; D, on no path (as in the
-     JAX package), at the shapes of its function, beside conv1d;
+     on both timers (the table's and a primed stream's) and the least time
+     the card could take (bound); B's and B'''s rows of the clips both
+     sizes share must be bit-equal; C also on the dense worst case (a
+     candidate every other sample), exactly; D, on no path (as in the JAX
+     package), at the shapes of its function, beside conv1d;
   4. extract_features on the card for the golden wavs, against the golden
      npz and the port's CPU result; with fused_gt (kernel B'') against the
      default path;
@@ -42,8 +44,6 @@ no result line):
 from __future__ import annotations
 
 import contextlib
-import functools
-import glob
 import io
 import json
 import os
@@ -55,6 +55,11 @@ import wave
 
 import numpy as np
 import torch
+
+from tpu_breath_torch.utils.kernel_times import calls as kernel_calls
+from tpu_breath_torch.utils.kernel_times import (clip_set, cuda_ms,
+                                                 dense_scores, golden,
+                                                 kernel_inputs)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SR = 16000
@@ -76,74 +81,6 @@ TOL_D = 1e-5
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-@functools.lru_cache(maxsize=None)
-def spin_cycles_per_ms() -> float:
-    """The card's clock cycles per ms, from one timed spin kernel."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    torch.cuda._sleep(10_000_000)
-    end.record()
-    end.synchronize()
-    return 10_000_000 / start.elapsed_time(end)
-
-
-def hold_stream(ms: float) -> None:
-    """Queue a spin kernel that holds the current stream for about ms."""
-    torch.cuda._sleep(int(ms * spin_cycles_per_ms()))
-
-
-def cuda_ms(fn, iters: int = 20, warmup: int = 3,
-            primed: bool = False) -> float:
-    """Mean time of fn() in ms over `iters` back-to-back calls, by CUDA
-    events. Unprimed (the kernel table's timer), a call that the host
-    queues more slowly than the card runs it is timed at the host's pace.
-    primed: a spin kernel first holds the stream for longer than the host
-    takes to queue the calls, so the card runs them back to back and the
-    time is the card's alone."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    if primed:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        hold_stream(2e3 * (time.perf_counter() - t0) + 1.0)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def golden() -> list[dict]:
-    paths = sorted(glob.glob(os.path.join(ROOT, "tests", "fixtures",
-                                          "golden_*.npz")))
-    if len(paths) < 2:
-        raise FileNotFoundError("golden fixtures missing")
-    return [dict(np.load(p)) for p in paths]
-
-
-def clip_set(n: int, seed: int) -> np.ndarray:
-    """[n, 16000]: the golden wavs, silence, an impulse, a quantized
-    (plateau-heavy) clip, then seeded noise of varying loudness."""
-    rng = np.random.default_rng(seed)
-    clips = [d["wav"] for d in golden()]
-    clips.append(np.zeros(SR, np.float32))
-    imp = np.zeros(SR, np.float32)
-    imp[SR // 2] = 0.5
-    clips.append(imp)
-    clips.append(np.round(rng.standard_normal(SR) * 4) / 64)
-    while len(clips) < n:
-        amp = 10.0 ** rng.uniform(-3, -0.5)
-        clips.append(rng.standard_normal(SR) * amp)
-    return np.stack(clips[:n]).astype(np.float32)
 
 
 def phase_env() -> dict:
@@ -178,31 +115,6 @@ def phase_build() -> None:
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[build] {line.strip()}")
-
-
-def kernel_inputs(y: torch.Tensor) -> dict:
-    """The kernels' inputs as the main path builds them from clips y."""
-    from tpu_breath_torch.ops import chroma, dft, peaks, spectral
-
-    s512 = spectral.stft_mag_cr(y, 512, 256).contiguous()
-    s2048 = spectral.stft_mag_cr(y, 2048, 256)[..., ::2]
-    p12, m12 = (t.contiguous() for t in chroma._piptrack_band(s512, SR, 512))
-    p36, m36 = (t.contiguous() for t in chroma._piptrack_band(s2048, SR,
-                                                              2048))
-    env = dft.hilbert_envelope(y)
-    scores = torch.where(peaks.local_maxima(env)
-                         & (env >= env.mean(-1, keepdim=True)), env,
-                         -torch.inf).contiguous()
-    fb = spectral.device_const(spectral.mel_matrix, SR, 512, 64,
-                               device=y.device)
-    yp = torch.nn.functional.pad(y, (256, 256))
-    frames = spectral.frame_signal(yp, 512, 256, 1 + y.shape[-1] // 256
-                                   ).contiguous()
-    basis = spectral.device_const(spectral.framedft_basis, 512,
-                                  device=y.device)
-    return {"p12": p12, "m12": m12, "p36": p36, "m36": m36, "mag": s512,
-            "fb": fb, "scores": scores, "frames": frames, "basis": basis,
-            "y": y}
 
 
 def cqt_args() -> tuple:
@@ -260,34 +172,31 @@ def phase_kernels() -> dict:
     from tpu_breath_torch.ops import dft
     from tpu_breath_torch.ops.cuda import (cqt_kernel as ck,
                                            epilogue_kernel as ek,
-                                           gammatone_kernel as gk,
-                                           peaks_kernel as pk,
                                            tuning_kernel as tk)
 
     rounds = SR // (SR // 10) + 2
-    res = {k: {"err": 0.0} for k in ("A", "B", "B'", "B''", "C", "D")}
+    res = {k: {"err": 0.0}
+           for k in ("A", "B", "B'", "B''", "C", "C dense", "D")}
     n_shared = len(golden()) + 2  # clip_set's first clips at every size
-    gt_rows = {}
+    gt_rows, mags = {}, {}
     for b in (MICRO, CHUNK):
         y = torch.from_numpy(clip_set(b, seed=b)).cuda()
         x = kernel_inputs(y)
         res["bound", b] = bounds(x, rounds)
-        # kernel -> (kernel call, plain call) at this batch's main-path shapes
+        # kernel C's worst case: a candidate every other sample
+        dense = dense_scores(b, seed=b)
+        # kernel -> (kernel call, plain call) at this batch's main-path
+        # shapes (B, B'', C and C's worst case as utils/kernel_times.py
+        # times them)
         calls = {
             "A": tuple(lambda f=f: (f(x["p12"], x["m12"], 12),
                                     f(x["p36"], x["m36"], 36))
                        for f in (tk.estimate_tuning_index,
                                  tk.estimate_tuning_index_plain)),
-            "B": tuple(lambda f=f: f(x["mag"], x["fb"])
-                       for f in (ek.fused_epilogue, ek.fused_epilogue_plain)),
             "B'": tuple(lambda f=f: f(x["mag"], x["fb"], plain=True)
                         for f in (ek.fused_epilogue,
                                   ek.fused_epilogue_plain)),
-            "B''": tuple(lambda f=f: f(x["frames"], x["basis"], x["fb"])
-                         for f in (gk.fused_gammatone,
-                                   gk.fused_gammatone_plain)),
-            "C": tuple(lambda f=f: f(x["scores"], SR // 10, rounds)
-                       for f in (pk.suppress_peaks, pk.suppress_peaks_plain)),
+            **kernel_calls(x, dense),
             "D": tuple(lambda f=f: f(y, *cqt_args())
                        for f in (ck.cqt_mag, ck.cqt_mag_plain)),
         }
@@ -306,9 +215,10 @@ def phase_kernels() -> dict:
                                      f"{errs[k]} > {tol}")
             res[k]["err"] = max(res[k]["err"], errs[k])
         gt_rows[b] = out["B''"][0][:n_shared]
+        mags[b] = x["mag"]
         (vals, kept), (rvals, rkept) = out["C"]
         err_c = float((vals - rvals).abs().max())
-        if not torch.equal(kept, rkept) or not err_c <= 1e-5:
+        if not (torch.equal(kept, rkept) and torch.equal(vals, rvals)):
             raise AssertionError(f"kernel C B {b}: kept equal "
                                  f"{torch.equal(kept, rkept)}, err {err_c}")
         env = dft.hilbert_envelope(y).cpu().numpy()
@@ -331,13 +241,23 @@ def phase_kernels() -> dict:
                         for k, t in TOLS.items())
             + f", C kept exact (= scipy counts), vals err {err_c:.3g}, "
             f"D max|a-b|/max|b| {rel_d:.3g} (tol {TOL_D:g})")
+        (vals, kept), (rvals, rkept) = out["C dense"]
+        if not (torch.equal(kept, rkept) and torch.equal(vals, rvals)):
+            raise AssertionError(f"kernel C dense B {b}: differs from its "
+                                 "plain version")
+        res["bound", b]["C dense"] = bounds({**x, "scores": dense},
+                                            rounds)["C"]
+        log(f"[kernels] B={b}: C on the dense worst case (8,000 candidates "
+            f"a clip, {int(kept.sum())} kept) equals its plain version")
         for k, (run, plain) in calls.items():
-            res[k][b] = (cuda_ms(run), cuda_ms(plain))
+            res[k][b] = (cuda_ms(run), cuda_ms(plain),
+                         cuda_ms(run, primed=True),
+                         cuda_ms(plain, primed=True))
             bound, by = res["bound", b][k]
             log(f"[time] kernel {k} B={b}: {res[k][b][0]:.4f} ms, plain "
                 f"{res[k][b][1]:.4f} ms, bound {bound:.4f} ms ({by}); "
-                f"stream primed: {cuda_ms(run, primed=True):.4f} ms, plain "
-                f"{cuda_ms(plain, primed=True):.4f} ms")
+                f"stream primed: {res[k][b][2]:.4f} ms, plain "
+                f"{res[k][b][3]:.4f} ms")
         res["D", "library", b] = cuda_ms(cqt_conv1d(y))
         log(f"[time] kernel D B={b}: library conv1d (f32, TF32 off; the "
             f"complex response without |.|) {res['D', 'library', b]:.4f} ms")
@@ -348,6 +268,15 @@ def phase_kernels() -> dict:
                              f"differ between B = {MICRO} and B = {CHUNK}")
     log(f"[kernels] B'': the rows of the {n_shared} clips B = {MICRO} and "
         f"B = {CHUNK} share (golden wavs, silence, impulse) are bit-equal")
+    # B too, on the same magnitudes of those clips in both batches
+    shared = mags[MICRO][:n_shared]
+    ep_rows = [ek.fused_epilogue(torch.cat([shared, mags[b][n_shared:]]),
+                                 x["fb"])[:n_shared] for b in (MICRO, CHUNK)]
+    if not torch.equal(*ep_rows):
+        raise AssertionError(f"kernel B: the {n_shared} shared clips' rows "
+                             f"differ between B = {MICRO} and B = {CHUNK}")
+    log(f"[kernels] B: the rows of the {n_shared} shared clips are "
+        f"bit-equal at B = {MICRO} and B = {CHUNK}")
     return res
 
 
@@ -959,7 +888,7 @@ def main() -> int:
                 "launches": sum(p[k] for p in paths.values()),
                 "launches_by_path": {n: p[k] for n, p in paths.items()},
                 "max_abs_err": ker[k]["err"], "ms": ker[k][CHUNK][0],
-                "plain_ms": ker[k][CHUNK][1],
+                "plain_ms": ker[k][CHUNK][1], "primed_ms": ker[k][CHUNK][2],
                 "bound_ms": ker["bound", CHUNK][k][0],
                 "bound_by": ker["bound", CHUNK][k][1],
                 "library_ms": ker.get(("D", "library", CHUNK)) if k == "D"

@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests import peaks_cases
+
 FIXTURES = sorted(glob.glob(os.path.join(os.path.dirname(__file__),
                                          "fixtures", "golden_*.npz")))
 
@@ -139,6 +141,51 @@ def test_gammatone_rows_do_not_depend_on_batch(clips):
             assert torch.equal(got[row], one[0]), (c, row)
 
 
+def _quiet_and_silent(clips: torch.Tensor, b: int) -> list[torch.Tensor]:
+    """Kernel B's test batches: at B = 1 a golden clip, quiet noise (1e-3)
+    and silence, each alone; else _batch's b clips, which hold them."""
+    if b == 1:
+        return [clips[c:c + 1] for c in (0, 4, 6)]
+    return [_batch(clips, b, seed=b)]
+
+
+@pytest.mark.parametrize("b", [1, 8, 128])
+def test_epilogue_kernel_vs_plain_at_batch(clips, b):
+    """Kernel B within 1e-5 of its plain version at B = 1, 8 and 128, on a
+    quiet clip and silence among others."""
+    from tpu_breath_torch.ops import spectral
+    from tpu_breath_torch.ops.cuda import epilogue_kernel as ek
+
+    fb = spectral.device_const(spectral.mel_matrix, 16000, 512, 64,
+                               device=clips.device)
+    for y in _quiet_and_silent(clips, b):
+        mag = spectral.stft_mag_cr(y, 512, 256).contiguous()
+        got = ek.fused_epilogue(mag, fb)
+        torch.cuda.synchronize()
+        ref = ek.fused_epilogue_plain(mag, fb)
+        assert got.shape == (y.shape[0], 64, 63)
+        assert float((got - ref).abs().max()) <= 1e-5
+
+
+def test_epilogue_rows_do_not_depend_on_batch(clips):
+    """A clip's kernel B rows are bit-equal alone (B = 1), as row 0 of a
+    batch of 128 and as its row 77, on the same magnitudes."""
+    from tpu_breath_torch.ops import spectral
+    from tpu_breath_torch.ops.cuda import epilogue_kernel as ek
+
+    fb = spectral.device_const(spectral.mel_matrix, 16000, 512, 64,
+                               device=clips.device)
+    mag = spectral.stft_mag_cr(_batch(clips, 128, seed=5), 512,
+                               256).contiguous()
+    for c in (0, 4, 6):  # a golden clip, quiet noise, silence
+        one = ek.fused_epilogue(mag[c:c + 1].contiguous(), fb)
+        for row in (0, 77):
+            mb = mag.clone()
+            mb[[row, c]] = mb[[c, row]]
+            got = ek.fused_epilogue(mb, fb)
+            assert torch.equal(got[row], one[0]), (c, row)
+
+
 def test_epilogue_kernel_within_1e5(clips):
     from tpu_breath_torch.ops import spectral
     from tpu_breath_torch.ops.cuda import epilogue_kernel as ek
@@ -251,7 +298,65 @@ def test_peaks_kernel_exact(clips):
     torch.cuda.synchronize()
     rvals, rkept = pk.suppress_peaks_plain(scores, 1600, 12)
     assert torch.equal(kept, rkept)
-    assert float((vals - rvals).abs().max()) <= 1e-5
+    assert torch.equal(vals, rvals)
+
+
+@pytest.mark.parametrize("b", [1, 8, 128])
+def test_peaks_kernel_exact_on_adversarial_sets(clips, b):
+    """Kernel C equals its plain version exactly (vals and kept) on the
+    adversarial score sets of tests/peaks_cases.py: each set alone at
+    B = 1, and the sets repeated to fill B = 8 and 128."""
+    from tpu_breath_torch.ops.cuda import peaks_kernel as pk
+
+    by_rounds: dict = {}
+    for name, (scores, _, rounds) in sorted(peaks_cases.cases().items()):
+        by_rounds.setdefault(rounds, []).append((name, scores))
+    for rounds, sets in by_rounds.items():
+        rows = np.stack([s for _, s in sets])
+        batches = ([(name, s[None]) for name, s in sets] if b == 1 else
+                   [("all", np.resize(rows, (b, rows.shape[1])))])
+        for name, batch in batches:
+            x = torch.from_numpy(batch).cuda()
+            vals, kept = pk.suppress_peaks(x, peaks_cases.DISTANCE, rounds)
+            torch.cuda.synchronize()
+            rvals, rkept = pk.suppress_peaks_plain(x, peaks_cases.DISTANCE,
+                                                   rounds)
+            assert kept.dtype == torch.bool, name
+            assert torch.equal(kept, rkept), name
+            assert torch.equal(vals, rvals), name
+
+
+@pytest.mark.parametrize("kernel", ["C", "B"])
+def test_wrapper_call_is_one_kernel_launch(clips, kernel):
+    """One call of kernel C's or B's wrapper on CUDA tensors runs one
+    kernel on the card and nothing else (torch.profiler's record of a
+    warm call): its outputs are allocated, not converted."""
+    from tpu_breath_torch.ops import spectral
+    from tpu_breath_torch.ops.cuda import epilogue_kernel as ek
+    from tpu_breath_torch.ops.cuda import peaks_kernel as pk
+
+    if kernel == "C":
+        scores = torch.from_numpy(np.stack([s for s, _, r in peaks_cases.cases(
+        ).values() if r == peaks_cases.ROUNDS])).cuda()
+        call = lambda: pk.suppress_peaks(scores, peaks_cases.DISTANCE,
+                                         peaks_cases.ROUNDS)
+        name = "suppress_kernel"
+    else:
+        mag = spectral.stft_mag_cr(clips, 512, 256).contiguous()
+        fb = spectral.device_const(spectral.mel_matrix, 16000, 512, 64,
+                                   device=clips.device)
+        call = lambda: ek.fused_epilogue(mag, fb)
+        name = "epilogue_kernel"
+    call()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        call()
+        torch.cuda.synchronize()
+    on_card = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(on_card) == 1 and name in on_card[0], on_card
 
 
 def test_features_gpu_match_cpu(clips):

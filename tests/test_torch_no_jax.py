@@ -40,8 +40,8 @@ MODULES = {
     "ops.cuda.tuning_kernel", "ops.dft", "ops.lpc", "ops.peaks",
     "ops.rhythm", "ops.scalars", "ops.select", "ops.spectral", "train",
     "train.checkpoint", "train.loop", "train.metrics", "train.schedule",
-    "utils", "utils.gammatone_breakdown", "utils.path_times",
-    "utils.profiling",
+    "utils", "utils.gammatone_breakdown", "utils.kernel_times",
+    "utils.path_times", "utils.profiling",
 }
 
 

@@ -1,6 +1,8 @@
 """Kernel C (find_peaks greedy suppression) of the PyTorch port, plain
 version, against the JAX package's find_peaks_stats_batched (XLA and the
-Pallas kernel in interpret mode, atol 1e-5) and scipy's peak counts."""
+Pallas kernel in interpret mode, atol 1e-5) and scipy's peak counts, and
+against suppress_peaks_pallas exactly on adversarial score sets
+(tests/peaks_cases.py)."""
 import numpy as np
 import pytest
 import scipy.signal
@@ -9,8 +11,11 @@ import jax.numpy as jnp
 import torch
 
 from tpu_breath.ops import peaks as jx_peaks
+from tpu_breath.ops.pallas import peaks_kernel as jx_pallas_peaks
 from tpu_breath_torch.ops import peaks
 from tpu_breath_torch.ops.cuda import peaks_kernel
+
+from tests import peaks_cases
 
 SR = 16000
 
@@ -85,3 +90,27 @@ def test_suppression_ties_go_to_lowest_index():
     # window (|10 - 30| < 25) was already suppressed by 30
     assert kept[0].tolist() == [True, True, False, False, False, False]
     assert vals[0, :2].tolist() == [2.0, 2.0]
+
+
+CASES = peaks_cases.cases()
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_suppression_matches_pallas_on_adversarial_sets(name):
+    """Kernel C's plain version equals suppress_peaks_pallas (interpret
+    mode): kept equal, vals exact (0 where nothing was kept). On the sets
+    made from a signal, the survivors are scipy's find_peaks peaks."""
+    scores, signal, rounds = CASES[name]
+    vals, kept = peaks_kernel.suppress_peaks(torch.from_numpy(scores[None]),
+                                             peaks_cases.DISTANCE, rounds)
+    rv, rk = jx_pallas_peaks.suppress_peaks_pallas(
+        jnp.asarray(scores[None]), peaks_cases.DISTANCE, rounds, True)
+    np.testing.assert_array_equal(kept.numpy(), np.asarray(rk))
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(rv))
+    if signal is not None:
+        x, height = signal
+        pk, props = scipy.signal.find_peaks(x, height=height,
+                                            distance=peaks_cases.DISTANCE)
+        assert int(kept.sum()) == len(pk)
+        np.testing.assert_array_equal(np.sort(vals[kept].numpy()),
+                                      np.sort(props["peak_heights"]))

@@ -1,8 +1,8 @@
 // Gammatone-channel epilogue, one block per clip:
 //   out = znorm(f32(log1p(fb @ mag)))   over the whole [G, T] clip.
 //
-// Replaces tpu_breath/ops/pallas/epilogue_kernel.py::fused_epilogue in both
-// of its variants:
+// Replaces tpu_breath/ops/pallas/epilogue_kernel.py::fused_epilogue (its
+// pallas_call at :160) in both of its variants:
 //  - B, the default double-float variant (same math as the XLA branch
 //    features.py:137-141, dd.matmul_dd + dd.log1p_cr + znorm). The TPU
 //    kernel carried the product in two_sum chains because the TPU has no
@@ -13,51 +13,98 @@
 //    the like-for-like partner of a plain f32 GEMM + log1p.
 // Both take the z-score's mean and variance as float64 sums (gt_epilogue.cuh).
 //
-// What bounds it: per clip 2*G*F*T = 2.1 MFLOP (float64 for B, at half the
-// card's f32 CUDA-core rate; f32 for B') on 65 KB of magnitudes staged once
-// in shared memory; fb (66 KB, shared by every clip) is read through L1/L2.
-// At 8..128 clips the grid fills at most 128 of 132 SMs, so the kernel is
-// latency- and FMA-bound, never bandwidth-bound.
+// What bounds B on the H100: per clip 2 * G * F * T = 2.1 MFLOP of float64
+// (2.2 MFLOP with the padding) against 130 KB in (65 KB of magnitudes, fb's
+// 66 KB shared by every clip and read from L2) and 16 KB out: operations,
+// at the 67 TFLOP/s of the float64 tensor cores. Its design is the
+// epilogue of kernel B'' with |S| read from memory (gt_epilogue.cuh,
+// fb_znorm_tiles, shared by both): a clip's magnitudes come by cp.async of
+// 4 bytes (a clip's rows of 63 floats are not 16-byte aligned) into the
+// f-major |S| layout, padded with zeros to 264 frequencies and 64 frames,
+// and fb into rows padded with zeros; the product is 32 output tiles of
+// 16 x 8 on DMMA (33 k-steps each, 1,056 DMMAs a clip), 2 tiles a warp on
+// 16 warps sharing their A fragments; the z-score's sums go in tile order,
+// so a clip's bits depend neither on B nor on its place in the batch. One
+// clip is ~4 us of DMMA on one SM at the peak rate, so at B <= 132 the
+// kernel is latency bound: one wave, each SM one clip. Measured on the
+// card (PERF.md): the staging takes ~5 us of a call, log1p in float64
+// ~3 us, the DMMAs at most ~1 us. Tried and not kept: |S| widened to
+// float64 in shared memory (no faster); 16-byte loads of fb and |S| into
+// registers in place of the 4-byte cp.async (slower); a cluster of 2
+// blocks a clip, each half the frames (faster at B = 8, slower at
+// B = 128, where every block stages all of fb).
+//
+// B' keeps its first design: one block of 8 warps per clip, each output a
+// serial f32 FMA chain with fb read through L1.
 #include <cuda_runtime.h>
 
 #include "gt_epilogue.cuh"
+#include "smem_once.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using namespace gt_epilogue;
 
-template <bool kF32>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kThreads = 512;  // 16 warps, 2 output tiles each
+constexpr int kTilesPerWarp = kTiles / (kThreads / 32);
+constexpr int kSmemBytes = (kSFloats + kFbFloats) * 4;
+static_assert(kNTiles % kTilesPerWarp == 0, "a warp's tiles share a row");
+
+__global__ void __launch_bounds__(kThreads, 1)
 epilogue_kernel(const float* __restrict__ mag,  // [B, F, T]
                 const float* __restrict__ fb,   // [G, F]
                 float* __restrict__ out,        // [B, G, T]
                 int F, int T, int G) {
-  extern __shared__ float smem[];
-  float* smag = smem;           // [F * T]
-  float* sval = smem + F * T;   // [G * T]
+  extern __shared__ __align__(16) float smem[];
+  __shared__ double part[2][kTiles];
+  float* S = smem;               // [kMaxF][kSStride]
+  float* fbs = smem + kSFloats;  // [kBands][kFbStride]
+  const float* m = mag + static_cast<size_t>(blockIdx.x) * F * T;
+  for (int c = threadIdx.x; c < kSFloats; c += kThreads) {
+    const int f = c / kSStride, t = c % kSStride;
+    if (f < F && t < T) {
+      cp_async4(S + c, m + f * T + t);
+    } else {
+      S[c] = 0.0f;
+    }
+  }
+  stage_fb<kThreads>(fbs, fb, G, F);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  constexpr int kWarpsPerRow = kNTiles / kTilesPerWarp;
+  fb_znorm_tiles<kTilesPerWarp>(
+      fbs, S, warp / kWarpsPerRow, kTilesPerWarp * (warp % kWarpsPerRow),
+      true, G, T, part, out + static_cast<size_t>(blockIdx.x) * G * T,
+      [&](int k, int tile, double x) { part[k][tile] = x; },
+      [] { __syncthreads(); });
+}
+
+constexpr int kF32Threads = 256;
+
+__global__ void __launch_bounds__(kF32Threads)
+epilogue_f32_kernel(const float* __restrict__ mag,  // [B, F, T]
+                    const float* __restrict__ fb,   // [G, F]
+                    float* __restrict__ out,        // [B, G, T]
+                    int F, int T, int G) {
+  extern __shared__ float smem_f32[];
+  float* smag = smem_f32;          // [F * T]
+  float* sval = smem_f32 + F * T;  // [G * T]
   __shared__ double scratch[33];
 
   const int ft = F * T;
   const float* m = mag + static_cast<size_t>(blockIdx.x) * ft;
   for (int i = threadIdx.x; i < ft; i += blockDim.x) smag[i] = m[i];
   __syncthreads();
-  gt_epilogue::epilogue_clip<kF32>(
-      smag, fb, sval, out + static_cast<size_t>(blockIdx.x) * G * T, F, T, G,
-      scratch);
+  epilogue_clip_f32(smag, fb, sval,
+                    out + static_cast<size_t>(blockIdx.x) * G * T, F, T, G,
+                    scratch);
 }
 
-template <bool kF32>
-int launch(const float* mag, const float* fb, float* out, int b, int F,
-           int T, int G, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(F * T + G * T) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      epilogue_kernel<kF32>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (b == 0) return 0;
-  epilogue_kernel<kF32><<<b, kThreads, smem, stream>>>(mag, fb, out, F, T, G);
-  return static_cast<int>(cudaGetLastError());
-}
+int g_smem[smem_once::kMaxDevices];
+int g_smem_f32[smem_once::kMaxDevices];
 
 }  // namespace
 
@@ -65,6 +112,22 @@ extern "C" int fused_epilogue_launch(const float* mag, const float* fb,
                                      float* out, int b, int F, int T, int G,
                                      int f32, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return f32 ? launch<true>(mag, fb, out, b, F, T, G, s)
-             : launch<false>(mag, fb, out, b, F, T, G, s);
+  if (f32) {
+    const int smem = (F * T + G * T) * static_cast<int>(sizeof(float));
+    const cudaError_t err = smem_once::raise(
+        reinterpret_cast<const void*>(epilogue_f32_kernel), smem, g_smem_f32);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (b == 0) return 0;
+    epilogue_f32_kernel<<<b, kF32Threads, smem, s>>>(mag, fb, out, F, T, G);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (T < 1 || T > kRows || F < 1 || F > kMaxF || G < 1 || G > kBands) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = smem_once::raise(
+      reinterpret_cast<const void*>(epilogue_kernel), kSmemBytes, g_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (b == 0) return 0;
+  epilogue_kernel<<<b, kThreads, kSmemBytes, s>>>(mag, fb, out, F, T, G);
+  return static_cast<int>(cudaGetLastError());
 }

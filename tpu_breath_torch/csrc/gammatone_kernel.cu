@@ -37,7 +37,8 @@
 // - Once every block of the cluster is done with its ring, each block
 //   writes its |S| rows into all three blocks' shared memory (distributed
 //   shared memory). The filterbank product [64 x 264] x [264 x 64] is 32
-//   output tiles of 16 x 8 on the cluster's 33 warps, again on DMMA.
+//   output tiles of 16 x 8 on the cluster's 33 warps, again on DMMA
+//   (gt_epilogue.cuh, fb_znorm_tiles, which kernel B shares).
 // - The z-score's sums: each warp sums its tile in a fixed order, writes
 //   the sum into every block's table of 32, and every block adds the table
 //   in tile order. So the mean and variance are the same in the three
@@ -46,17 +47,20 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "gt_epilogue.cuh"
+#include "smem_once.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
+
+using namespace gt_epilogue;
 
 constexpr int kSplit = 3;                    // blocks per clip (the cluster)
 constexpr int kWarps = 11;                   // 8 frequencies per warp
 constexpr int kThreads = 32 * kWarps;
 constexpr int kFreqs = 8 * kWarps;           // 88 a block
-constexpr int kMaxF = kSplit * kFreqs;       // 264
-constexpr int kRows = 64;                    // frames, padded: 4 m16 tiles
-constexpr int kBands = 64;                   // filterbank rows: 4 m16 tiles
+static_assert(kSplit * kFreqs == kMaxF, "the blocks cover |S|'s padding");
 constexpr int kKT = 32;                      // k per ring stage
 constexpr int kStages = 3;
 constexpr int kAStride = kKT + 4;            // conflict-free A fragments
@@ -64,64 +68,8 @@ constexpr int kAFloats = kRows * kAStride;   // a stage's frames
 constexpr int kBFloats = kKT * 2 * kFreqs;   // [k8 step][warp][re|im][2][32]
 constexpr int kStageFloats = kAFloats + kBFloats;
 constexpr int kRingFloats = kStages * kStageFloats;
-constexpr int kSStride = kRows + 8;          // |S| [f][t]: conflict-free
-constexpr int kFbStride = kMaxF + 4;         // fb [g][f]: conflict-free
-constexpr int kSFloats = kMaxF * kSStride;   // |S| reuses the ring
-constexpr int kFbFloats = kBands * kFbStride;
 static_assert(kSFloats <= kRingFloats, "|S| must fit in the ring");
 constexpr int kSmemBytes = (kRingFloats + kFbFloats) * 4;
-constexpr int kTiles = (kBands / 16) * (kRows / 8);  // 32 output tiles
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// d[16 x 8] += a[16 x 8] * b[8 x 8] in float64. With g = lane / 4 and
-// t = lane % 4: a[i] = A[g + 8 (i % 2)][t + 4 (i / 2)], b[i] = B[t + 4 i][g],
-// d[i] = D[g + 8 (i / 2)][2 t + i % 2].
-__device__ __forceinline__ void mma_f64(double (&d)[4], const double (&a)[4],
-                                        double b0, double b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
-      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b0), "d"(b1));
-}
-
-// The A fragment at p = &A[g][t] of a row-major f32 matrix, widened.
-template <int kStride>
-__device__ __forceinline__ void load_a(double (&a)[4], const float* p) {
-  a[0] = p[0];
-  a[1] = p[8 * kStride];
-  a[2] = p[4];
-  a[3] = p[8 * kStride + 4];
-}
-
-__device__ __forceinline__ double warp_sum(double v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  }
-  return v;
-}
 
 __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads, 1)
 gammatone_kernel(const float* __restrict__ frames,  // [B, T, K]
@@ -166,16 +114,7 @@ gammatone_kernel(const float* __restrict__ frames,  // [B, T, K]
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < n_kt) load_stage(s, s);
-    if (s == 1) {  // fb rides with the second stage; zero past G and F
-      for (int c = threadIdx.x; c < kFbFloats; c += kThreads) {
-        const int row = c / kFbStride, f = c % kFbStride;
-        if (row < G && f < F) {
-          cp_async4(fbs + c, fb + row * F + f);
-        } else {
-          fbs[c] = 0.0f;
-        }
-      }
-    }
+    if (s == 1) stage_fb<kThreads>(fbs, fb, G, F);  // with the 2nd stage
     cp_async_commit();
   }
   for (int kt = 0; kt < n_kt; ++kt) {
@@ -230,69 +169,21 @@ gammatone_kernel(const float* __restrict__ frames,  // [B, T, K]
   }
   cluster.sync();
 
-  // the filterbank product: output tile (mt, nt) of [64 bands x 64 frames]
-  const int tile = r * kWarps + warp;  // 0..32; tile 32 has no work
-  const int mt = tile / (kRows / 8), nt = tile % (kRows / 8);
-  double c[4] = {0.0, 0.0, 0.0, 0.0};
-  if (tile < kTiles) {
-#pragma unroll 3
-    for (int s = 0; s < kMaxF / 8; ++s) {
-      double af[4];
-      load_a<kFbStride>(af, fbs + (16 * mt + g) * kFbStride + 8 * s + t);
-      const float* bp = S + (8 * s + t) * kSStride + 8 * nt + g;
-      mma_f64(c, af, bp[0], bp[4 * kSStride]);
-    }
-  }
-  float v[4];
-  bool valid[4];
-  double sum = 0.0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gr = 16 * mt + g + 8 * (i >> 1), tc = 8 * nt + 2 * t + (i & 1);
-    valid[i] = tile < kTiles && gr < G && tc < T;
-    v[i] = __double2float_rn(log1p(c[i]));
-    if (valid[i]) sum += v[i];
-  }
+  // the filterbank product and the z-score: tile (mt, nt) of [64 bands x
+  // 64 frames] on warp tile = 11 r + warp; tile 32 has no work
+  const int tile = r * kWarps + warp;
+  fb_znorm_tiles<1>(
+      fbs, S, tile / kNTiles, tile % kNTiles, tile < kTiles, G, T, part,
+      out + static_cast<size_t>(blockIdx.y) * G * T,
+      [&](int k, int q, double x) {
+        for (int rank = 0; rank < kSplit; ++rank) {
+          cluster.map_shared_rank(part[k], rank)[q] = x;
+        }
+      },
+      [&] { cluster.sync(); });  // the last sync: the last access to
+}                                // another block's shared memory
 
-  // z-score: tile sums in every block's table, added in tile order
-  const double n = static_cast<double>(G) * T;
-  sum = warp_sum(sum);
-  if (lane == 0 && tile < kTiles) {
-    for (int q = 0; q < kSplit; ++q) {
-      cluster.map_shared_rank(part[0], q)[tile] = sum;
-    }
-  }
-  cluster.sync();
-  double total = 0.0;
-  for (int j = 0; j < kTiles; ++j) total += part[0][j];
-  const float mean = __double2float_rn(total / n);
-
-  double sq = 0.0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float d = __fsub_rn(v[i], mean);
-    if (valid[i]) sq += static_cast<double>(d) * d;
-  }
-  sq = warp_sum(sq);
-  if (lane == 0 && tile < kTiles) {
-    for (int q = 0; q < kSplit; ++q) {
-      cluster.map_shared_rank(part[1], q)[tile] = sq;
-    }
-  }
-  cluster.sync();  // the last access to another block's shared memory
-  total = 0.0;
-  for (int j = 0; j < kTiles; ++j) total += part[1][j];
-  const float var = __double2float_rn(total / n);
-  const float denom = __fadd_rn(__fsqrt_rn(var), 1e-8f);
-  float* dst = out + static_cast<size_t>(blockIdx.y) * G * T;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (valid[i]) {
-      dst[(16 * mt + g + 8 * (i >> 1)) * T + 8 * nt + 2 * t + (i & 1)] =
-          __fdiv_rn(__fsub_rn(v[i], mean), denom);
-    }
-  }
-}
+int g_smem[smem_once::kMaxDevices];
 
 }  // namespace
 
@@ -304,12 +195,11 @@ extern "C" int fused_gammatone_launch(const float* frames, const float* tiles,
   if (T < 1 || T > kRows || K % kKT != 0 || F > kMaxF || G > kBands) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int smem = kSmemBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      gammatone_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err = smem_once::raise(
+      reinterpret_cast<const void*>(gammatone_kernel), kSmemBytes, g_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (b == 0) return 0;
-  gammatone_kernel<<<dim3(kSplit, b), kThreads, smem,
+  gammatone_kernel<<<dim3(kSplit, b), kThreads, kSmemBytes,
                      static_cast<cudaStream_t>(stream)>>>(
       frames, tiles, fb, out, T, K, F, G);
   return static_cast<int>(cudaGetLastError());

@@ -5,7 +5,8 @@ z-normed log1p(fb @ |S|) over each whole clip.
 - B (plain=False, the default): the product accumulates in float64 and
   log1p is rounded once, because this channel's z-score divides by a std of
   ~0.005 on quiet clips and amplifies f32 accumulation error past the
-  parity budget.
+  parity budget. The kernel runs the product on the float64 tensor cores,
+  the filterbank-and-z-score stage it shares with kernel B''.
 - B' (plain=True, the JAX kernel's name for it): native f32 product and
   log1p, the like-for-like partner of a plain f32 GEMM.
 """
@@ -15,7 +16,12 @@ import torch
 
 from tpu_breath_torch.ops.cuda import _build
 
-MAX_SMEM_FLOATS = 56_000  # (F*T + G*T) floats, under the 227 KB cap
+MAX_SMEM_FLOATS = 56_000  # B': (F*T + G*T) floats, under the 227 KB cap
+# B: |S| padded to MAX_FREQS x MAX_FRAMES, fb to MAX_BANDS rows (the .cu's
+# kMaxF, kRows, kBands)
+MAX_FREQS = 264
+MAX_FRAMES = 64
+MAX_BANDS = 64
 
 LAUNCHES = 0      # kernel B
 LAUNCHES_F32 = 0  # kernel B'
@@ -60,8 +66,12 @@ def fused_epilogue(mag: torch.Tensor, fb: torch.Tensor,
         raise ValueError("epilogue kernel takes contiguous tensors")
     b, f, t = mag.shape
     g = fb.shape[0]
-    if (f + g) * t > MAX_SMEM_FLOATS:
+    if plain and (f + g) * t > MAX_SMEM_FLOATS:
         raise ValueError(f"[{f}+{g}, {t}] exceeds the kernel's shared memory")
+    if not plain and (f > MAX_FREQS or not 1 <= t <= MAX_FRAMES
+                      or not 1 <= g <= MAX_BANDS):
+        raise ValueError(f"F {f}, T {t}, G {g}: kernel B takes F <= "
+                         f"{MAX_FREQS}, T <= {MAX_FRAMES}, G <= {MAX_BANDS}")
     out = torch.empty(b, g, t, dtype=torch.float32, device=mag.device)
     stream = torch.cuda.current_stream(mag.device).cuda_stream
     rc = _build.lib().fused_epilogue_launch(

@@ -3,6 +3,8 @@
 Counterpart of tpu_breath/ops/pallas/peaks_kernel.py::suppress_peaks_pallas:
 `rounds` rounds of per-clip argmax over candidate scores (ties to the lowest
 index), each masking a +/-(distance-1) window around the peak it keeps.
+The kernel reads a clip's row once into a list of its candidates and
+re-scans only the parts of the list a window changed; one launch a call.
 """
 from __future__ import annotations
 
@@ -10,7 +12,8 @@ import torch
 
 from tpu_breath_torch.ops.cuda import _build
 
-MAX_SAMPLES = 56_000  # one f32 row in shared memory, under the 227 KB cap
+MAX_SAMPLES = 28_000  # a (value, index) list as long as the row in shared
+                      # memory, under the 227 KB cap
 
 LAUNCHES = 0
 
@@ -40,6 +43,9 @@ def suppress_peaks(scores: torch.Tensor, distance: int, rounds: int
     global LAUNCHES
     if scores.dim() != 2:
         raise ValueError(f"scores {tuple(scores.shape)}: want [B, n]")
+    if distance < 1 or rounds < 0:
+        raise ValueError(f"distance {distance}, rounds {rounds}: want "
+                         "distance >= 1 and rounds >= 0")
     if scores.device.type == "cpu":
         return suppress_peaks_plain(scores, distance, rounds)
     if scores.device.type != "cuda":
@@ -50,11 +56,11 @@ def suppress_peaks(scores: torch.Tensor, distance: int, rounds: int
     if n > MAX_SAMPLES:
         raise ValueError(f"{n} samples exceed the kernel's shared memory")
     vals = torch.empty(b, rounds, dtype=torch.float32, device=scores.device)
-    kept = torch.empty(b, rounds, dtype=torch.uint8, device=scores.device)
+    kept = torch.empty(b, rounds, dtype=torch.bool, device=scores.device)
     stream = torch.cuda.current_stream(scores.device).cuda_stream
     rc = _build.lib().suppress_peaks_launch(
         scores.data_ptr(), vals.data_ptr(), kept.data_ptr(), b, n,
         int(distance), int(rounds), stream)
     _build.check(rc, "suppress_peaks_launch")
     LAUNCHES += 1
-    return vals, kept.bool()
+    return vals, kept

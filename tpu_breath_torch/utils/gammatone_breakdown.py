@@ -89,7 +89,8 @@ def build(names: dict[str, str]) -> dict[str, ctypes.CDLL]:
         so = cu[:-3] + ".so"
         procs[name] = (so, subprocess.Popen(
             [_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3",
-             "-shared", "-Xcompiler", "-fPIC", "-o", so, cu],
+             "-shared", "-Xcompiler", "-fPIC", "-I", _build.CSRC, "-o", so,
+             cu],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     libs = {}
     for name, (so, p) in procs.items():

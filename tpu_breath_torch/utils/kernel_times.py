@@ -1,0 +1,220 @@
+"""Kernels B, B'' and C of this checkout on the card: their times on two
+timers, and their outputs kept for comparing two checkouts bit for bit.
+
+    python -m tpu_breath_torch.utils.kernel_times --out T.json [--save O.pt]
+    python -m tpu_breath_torch.utils.kernel_times --compare O1.pt O2.pt
+
+The inputs are chip_smoke.py's kernel inputs (this module builds them for
+both): the golden wavs, silence, an impulse, a quantized clip, then seeded
+noise, at B = 8 and 128; and kernel C's dense worst case, a candidate every
+other sample. Each kernel and its plain version is timed by CUDA events
+over 20 back-to-back calls after 3 warm-ups, unprimed (where the host
+queues a call more slowly than the card runs it, the host sets the pace)
+and primed (a spin kernel first holds the stream, so the card runs the
+calls back to back: the card's time alone). Copied into the package of an
+earlier checkout, it times that checkout's kernels by the same code: to
+compare two checkouts, run both in one call, alternating. --compare says,
+for each kernel and batch, whether two saved outputs are bit-equal.
+"""
+from __future__ import annotations
+
+import argparse
+import functools
+import glob
+import json
+import os
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+SR = 16000
+
+
+@functools.lru_cache(maxsize=None)
+def spin_cycles_per_ms() -> float:
+    """The card's clock cycles per ms, from one timed spin kernel."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10_000_000)
+    end.record()
+    end.synchronize()
+    return 10_000_000 / start.elapsed_time(end)
+
+
+def hold_stream(ms: float) -> None:
+    """Queue a spin kernel that holds the current stream for about ms."""
+    torch.cuda._sleep(int(ms * spin_cycles_per_ms()))
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3,
+            primed: bool = False) -> float:
+    """Mean time of fn() in ms over `iters` back-to-back calls, by CUDA
+    events. Unprimed (the kernel table's timer), a call that the host
+    queues more slowly than the card runs it is timed at the host's pace.
+    primed: a spin kernel first holds the stream for longer than the host
+    takes to queue the calls, so the card runs them back to back and the
+    time is the card's alone."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    if primed:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        hold_stream(2e3 * (time.perf_counter() - t0) + 1.0)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def golden() -> list[dict]:
+    paths = sorted(glob.glob(os.path.join(ROOT, "tests", "fixtures",
+                                          "golden_*.npz")))
+    if len(paths) < 2:
+        raise FileNotFoundError("golden fixtures missing")
+    return [dict(np.load(p)) for p in paths]
+
+
+def clip_set(n: int, seed: int) -> np.ndarray:
+    """[n, 16000]: the golden wavs, silence, an impulse, a quantized
+    (plateau-heavy) clip, then seeded noise of varying loudness."""
+    rng = np.random.default_rng(seed)
+    clips = [d["wav"] for d in golden()]
+    clips.append(np.zeros(SR, np.float32))
+    imp = np.zeros(SR, np.float32)
+    imp[SR // 2] = 0.5
+    clips.append(imp)
+    clips.append(np.round(rng.standard_normal(SR) * 4) / 64)
+    while len(clips) < n:
+        amp = 10.0 ** rng.uniform(-3, -0.5)
+        clips.append(rng.standard_normal(SR) * amp)
+    return np.stack(clips[:n]).astype(np.float32)
+
+
+def kernel_inputs(y: torch.Tensor) -> dict:
+    """The kernels' inputs as the main path builds them from clips y."""
+    from tpu_breath_torch.ops import chroma, dft, peaks, spectral
+
+    s512 = spectral.stft_mag_cr(y, 512, 256).contiguous()
+    s2048 = spectral.stft_mag_cr(y, 2048, 256)[..., ::2]
+    p12, m12 = (t.contiguous() for t in chroma._piptrack_band(s512, SR, 512))
+    p36, m36 = (t.contiguous() for t in chroma._piptrack_band(s2048, SR,
+                                                              2048))
+    env = dft.hilbert_envelope(y)
+    scores = torch.where(peaks.local_maxima(env)
+                         & (env >= env.mean(-1, keepdim=True)), env,
+                         -torch.inf).contiguous()
+    fb = spectral.device_const(spectral.mel_matrix, SR, 512, 64,
+                               device=y.device)
+    yp = torch.nn.functional.pad(y, (256, 256))
+    frames = spectral.frame_signal(yp, 512, 256, 1 + y.shape[-1] // 256
+                                   ).contiguous()
+    basis = spectral.device_const(spectral.framedft_basis, 512,
+                                  device=y.device)
+    return {"p12": p12, "m12": m12, "p36": p36, "m36": m36, "mag": s512,
+            "fb": fb, "scores": scores, "frames": frames, "basis": basis,
+            "y": y}
+
+
+def dense_scores(b: int, seed: int) -> torch.Tensor:
+    """Kernel C's worst case on the card: a candidate every other sample
+    (8,000 a clip) at seeded heights, -inf between: [b, 16000]."""
+    rng = np.random.default_rng(seed)
+    s = np.full((b, SR), -np.inf, np.float32)
+    s[:, ::2] = rng.uniform(0.1, 1.0, (b, SR // 2))
+    return torch.from_numpy(s).cuda()
+
+
+def calls(x: dict, dense: torch.Tensor) -> dict:
+    """kernel -> (kernel call, plain call) on inputs x and dense."""
+    from tpu_breath_torch.ops.cuda import (epilogue_kernel as ek,
+                                           gammatone_kernel as gk,
+                                           peaks_kernel as pk)
+
+    d = SR // 10
+    rounds = SR // d + 2
+    return {
+        "B": tuple(lambda f=f: f(x["mag"], x["fb"])
+                   for f in (ek.fused_epilogue, ek.fused_epilogue_plain)),
+        "B''": tuple(lambda f=f: f(x["frames"], x["basis"], x["fb"])
+                     for f in (gk.fused_gammatone,
+                               gk.fused_gammatone_plain)),
+        "C": tuple(lambda f=f: f(x["scores"], d, rounds)
+                   for f in (pk.suppress_peaks, pk.suppress_peaks_plain)),
+        "C dense": tuple(lambda f=f: f(dense, d, rounds)
+                         for f in (pk.suppress_peaks,
+                                   pk.suppress_peaks_plain)),
+    }
+
+
+def measure() -> tuple[dict, dict]:
+    """Times {kernel: {B: {ms, plain_ms, primed_ms, plain_primed_ms}}} and
+    outputs {"kernel B=b": tensor or tuple of tensors, on the CPU}."""
+    times: dict = {}
+    outputs = {}
+    for b in (8, 128):
+        x = kernel_inputs(torch.from_numpy(clip_set(b, seed=b)).cuda())
+        for k, (run, plain) in calls(x, dense_scores(b, seed=b)).items():
+            got = run()
+            torch.cuda.synchronize()
+            outputs[f"{k} B={b}"] = (tuple(t.cpu() for t in got)
+                                     if isinstance(got, tuple) else got.cpu())
+            times.setdefault(k, {})[b] = {
+                "ms": cuda_ms(run), "plain_ms": cuda_ms(plain),
+                "primed_ms": cuda_ms(run, primed=True),
+                "plain_primed_ms": cuda_ms(plain, primed=True)}
+            t = times[k][b]
+            print(f"[kernel_times] {k} B={b}: {t['ms']:.4f} ms, plain "
+                  f"{t['plain_ms']:.4f} ms; primed {t['primed_ms']:.4f} ms, "
+                  f"plain {t['plain_primed_ms']:.4f} ms", flush=True)
+    return times, outputs
+
+
+def _equal(a, b) -> bool:
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(map(_equal, a, b))
+    return (torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
+
+
+def main(argv: list[str] | None = None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", help="write the times here (JSON)")
+    ap.add_argument("--save", help="write the outputs here (torch.save)")
+    ap.add_argument("--compare", nargs=2, metavar=("A", "B"),
+                    help="two saved outputs: which are bit-equal")
+    args = ap.parse_args(argv)
+    if args.compare:
+        a, b = (torch.load(p) for p in args.compare)
+        for key in sorted(set(a) & set(b)):
+            print(f"[kernel_times] {key}: "
+                  f"{'bit-equal' if _equal(a[key], b[key]) else 'differs'}")
+        return
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times needs a CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"[kernel_times] {ROOT}: {smi}", flush=True)
+    times, outputs = measure()
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"root": ROOT, "smi": smi, "times": times}, f, indent=1)
+    if args.save:
+        torch.save(outputs, args.save)
+
+
+if __name__ == "__main__":
+    main()
