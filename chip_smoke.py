@@ -12,10 +12,11 @@ no result line):
      the card, at the main path's shapes with B = 8 and B = 128 (golden wavs
      + seeded noise, silence, an impulse, quantized plateaus), with times
      on both timers (the table's and a primed stream's) and the least time
-     the card could take (bound); B's and B'''s rows of the clips both
-     sizes share must be bit-equal; C also on the dense worst case (a
-     candidate every other sample), exactly; D, on no path (as in the JAX
-     package), at the shapes of its function, beside conv1d;
+     the card could take (bound); B's, B''s, B'''s and D's rows of the
+     clips both sizes share must be bit-equal; C also on the dense worst
+     case (a candidate every other sample) and on rows of 40,000 samples
+     (its list then in device memory), exactly; D, on no path (as in the
+     JAX package), at the shapes of its function, beside conv1d;
   4. extract_features on the card for the golden wavs, against the golden
      npz and the port's CPU result; with fused_gt (kernel B'') against the
      default path;
@@ -57,7 +58,7 @@ import numpy as np
 import torch
 
 from tpu_breath_torch.utils.kernel_times import calls as kernel_calls
-from tpu_breath_torch.utils.kernel_times import (clip_set, cuda_ms,
+from tpu_breath_torch.utils.kernel_times import (clip_set, cqt_args, cuda_ms,
                                                  dense_scores, golden,
                                                  kernel_inputs)
 
@@ -117,25 +118,23 @@ def phase_build() -> None:
             log(f"[build] {line.strip()}")
 
 
-def cqt_args() -> tuple:
-    """Kernel D's arguments after y: sr, hop, fmin (C1), bins, bins per
-    octave: the JAX package's test of its Pallas kernel."""
-    from tpu_breath_torch.config import DEFAULT_FEATURES as SPEC
-    return (SR, SPEC.hop_length, SPEC.cqt_fmin, 252, 36)
-
-
 def bounds(x: dict, rounds: int) -> dict:
     """kernel -> (bound_ms, bound_by): the larger of the bytes each input
     read once and each output written once over HBM_BPS, and the
     operations over the peak rate of their type, at these inputs. For D
-    the work is what the bank's nonzero windows need: 2 (re, im) FMAs of
-    2 operations per frame and nonzero entry, the nonzero entries read
-    once (re and im f32)."""
+    the work is what the function needs: 2 (re, im) FMAs of 2 operations
+    for each frame and bank entry inside the bin's nonzero window whose
+    sample of ypad lies in the clip (the rest multiply zeros of ypad's
+    padding), the nonzero entries read once (re and im f32)."""
     from tpu_breath_torch.ops.cuda import cqt_kernel as ck
 
-    sr, _, fmin, n_bins, bpo = cqt_args()
-    win = ck.bank_windows(sr, fmin, n_bins, bpo)
+    sr, hop, fmin, n_bins, bpo = cqt_args()
+    win = ck.bank_windows(sr, fmin, n_bins, bpo).astype(np.int64)
     nnz = int((win[:, 1] - win[:, 0]).sum())
+    half, n = ck._kernel_bank(sr, fmin, n_bins, bpo)[2], x["y"].shape[-1]
+    starts = half - hop * np.arange(1 + n // hop)[:, None]  # [T, 1]
+    terms = int(np.clip(np.minimum(win[:, 1], starts + n)
+                        - np.maximum(win[:, 0], starts), 0, None).sum())
     b = x["mag"].shape[0]
     f, t = x["mag"].shape[1:]
     g = x["fb"].shape[0]
@@ -156,7 +155,7 @@ def bounds(x: dict, rounds: int) -> dict:
         "C": (nb(x["scores"]) + b * rounds * 5,  # f32 vals + uint8 kept
               (rounds * x["scores"].numel(), F32_FLOPS)),
         "D": (nb(x["y"]) + nnz * 8 + b * n_bins * t * 4,
-              (2 * 2 * t * nnz * b, F32_FLOPS)),
+              (2 * 2 * terms * b, F32_FLOPS)),
     }
     out = {}
     for name, (nbytes, (flops, peak)) in work.items():
@@ -170,15 +169,14 @@ def phase_kernels() -> dict:
     """Kernel vs plain on the card; returns errors and times per kernel."""
     import scipy.signal
     from tpu_breath_torch.ops import dft
-    from tpu_breath_torch.ops.cuda import (cqt_kernel as ck,
-                                           epilogue_kernel as ek,
+    from tpu_breath_torch.ops.cuda import (epilogue_kernel as ek,
                                            tuning_kernel as tk)
 
     rounds = SR // (SR // 10) + 2
     res = {k: {"err": 0.0}
            for k in ("A", "B", "B'", "B''", "C", "C dense", "D")}
     n_shared = len(golden()) + 2  # clip_set's first clips at every size
-    gt_rows, mags = {}, {}
+    gt_rows, cqt_rows, mags = {}, {}, {}
     for b in (MICRO, CHUNK):
         y = torch.from_numpy(clip_set(b, seed=b)).cuda()
         x = kernel_inputs(y)
@@ -186,19 +184,14 @@ def phase_kernels() -> dict:
         # kernel C's worst case: a candidate every other sample
         dense = dense_scores(b, seed=b)
         # kernel -> (kernel call, plain call) at this batch's main-path
-        # shapes (B, B'', C and C's worst case as utils/kernel_times.py
-        # times them)
+        # shapes (B, B', B'', C, C's worst case and D as
+        # utils/kernel_times.py times them)
         calls = {
             "A": tuple(lambda f=f: (f(x["p12"], x["m12"], 12),
                                     f(x["p36"], x["m36"], 36))
                        for f in (tk.estimate_tuning_index,
                                  tk.estimate_tuning_index_plain)),
-            "B'": tuple(lambda f=f: f(x["mag"], x["fb"], plain=True)
-                        for f in (ek.fused_epilogue,
-                                  ek.fused_epilogue_plain)),
             **kernel_calls(x, dense),
-            "D": tuple(lambda f=f: f(y, *cqt_args())
-                       for f in (ck.cqt_mag, ck.cqt_mag_plain)),
         }
         out = {k: (run(), plain()) for k, (run, plain) in calls.items()}
         torch.cuda.synchronize()
@@ -215,6 +208,7 @@ def phase_kernels() -> dict:
                                      f"{errs[k]} > {tol}")
             res[k]["err"] = max(res[k]["err"], errs[k])
         gt_rows[b] = out["B''"][0][:n_shared]
+        cqt_rows[b] = out["D"][0][:n_shared]
         mags[b] = x["mag"]
         (vals, kept), (rvals, rkept) = out["C"]
         err_c = float((vals - rvals).abs().max())
@@ -268,16 +262,62 @@ def phase_kernels() -> dict:
                              f"differ between B = {MICRO} and B = {CHUNK}")
     log(f"[kernels] B'': the rows of the {n_shared} clips B = {MICRO} and "
         f"B = {CHUNK} share (golden wavs, silence, impulse) are bit-equal")
-    # B too, on the same magnitudes of those clips in both batches
-    shared = mags[MICRO][:n_shared]
-    ep_rows = [ek.fused_epilogue(torch.cat([shared, mags[b][n_shared:]]),
-                                 x["fb"])[:n_shared] for b in (MICRO, CHUNK)]
-    if not torch.equal(*ep_rows):
-        raise AssertionError(f"kernel B: the {n_shared} shared clips' rows "
+    # D computes each clip alone too, whatever the blocks a clip is dealt to
+    if not torch.equal(cqt_rows[MICRO], cqt_rows[CHUNK]):
+        raise AssertionError(f"kernel D: the {n_shared} shared clips' rows "
                              f"differ between B = {MICRO} and B = {CHUNK}")
-    log(f"[kernels] B: the rows of the {n_shared} shared clips are "
+    log(f"[kernels] D: the rows of the {n_shared} shared clips are "
         f"bit-equal at B = {MICRO} and B = {CHUNK}")
+    # B and B' too, on the same magnitudes of those clips in both batches
+    shared = mags[MICRO][:n_shared]
+    for k, plain in (("B", False), ("B'", True)):
+        ep_rows = [ek.fused_epilogue(torch.cat([shared, mags[b][n_shared:]]),
+                                     x["fb"], plain=plain)[:n_shared]
+                   for b in (MICRO, CHUNK)]
+        if not torch.equal(*ep_rows):
+            raise AssertionError(f"kernel {k}: the {n_shared} shared clips' "
+                                 f"rows differ between B = {MICRO} and "
+                                 f"B = {CHUNK}")
+        log(f"[kernels] {k}: the rows of the {n_shared} shared clips are "
+            f"bit-equal at B = {MICRO} and B = {CHUNK}")
+    check_long_rows(40_000)
     return res
+
+
+def check_long_rows(n: int) -> None:
+    """Kernel C on rows past its shared-memory list (the wrapper then keeps
+    it in device memory): B = 8 envelopes of seeded noise, half of them
+    quantized, distance sr // 10; vals and kept equal the plain version,
+    the survivor counts scipy's."""
+    import scipy.signal
+    from tpu_breath_torch.ops import peaks
+    from tpu_breath_torch.ops.cuda import peaks_kernel as pk
+
+    rng = np.random.default_rng(n)
+    env = np.abs(scipy.signal.hilbert(rng.standard_normal((MICRO, n)))
+                 ).astype(np.float32)
+    env[1::2] = np.round(env[1::2] * 64) / 64
+    h = env.mean(axis=-1, keepdims=True)
+    e = torch.from_numpy(env).cuda()
+    scores = torch.where(peaks.local_maxima(e)
+                         & (e >= torch.from_numpy(h).cuda()), e,
+                         -torch.inf).contiguous()
+    d = SR // 10
+    vals, kept = pk.suppress_peaks(scores, d, n // d + 2)
+    rvals, rkept = pk.suppress_peaks_plain(scores, d, n // d + 2)
+    if not (n > pk.SMEM_SAMPLES and torch.equal(kept, rkept)
+            and torch.equal(vals, rvals)):
+        raise AssertionError(f"kernel C at n = {n}: differs from its plain "
+                             "version")
+    for i in range(MICRO):
+        found, _ = scipy.signal.find_peaks(env[i], height=float(h[i, 0]),
+                                           distance=d)
+        if int(kept[i].sum()) != len(found):
+            raise AssertionError(f"kernel C at n = {n}, clip {i}: "
+                                 f"{int(kept[i].sum())} != {len(found)}")
+    log(f"[kernels] C on {MICRO} rows of {n} samples (list in device "
+        f"memory): equal to its plain version, {int(kept.sum())} kept "
+        "(= scipy's counts)")
 
 
 def cqt_conv1d(y: torch.Tensor):

@@ -5,14 +5,18 @@ clips), plus device handling and the bare run."""
 import csv
 import json
 import os
+import shutil
 import wave
 
 import numpy as np
 import pytest
 import torch
 
+from tpu_breath.data import wav as jx_wav
 from tpu_breath_torch import cli
+from tpu_breath_torch.config import Paths
 from tpu_breath_torch.data import dataset as ds
+from tpu_breath_torch.data import wav as wav_io
 from tpu_breath_torch.train import checkpoint as ckpt_lib
 
 N_TRAIN, N_TEST = 24, 8
@@ -126,6 +130,42 @@ def test_train_from_npz(e2e, tmp_path):
               "--root", str(e2e["root"]), "--out-root", str(out),
               "--device", "cpu"])
     assert ckpt_lib.latest_checkpoint(cli.ckpt_dir(str(out), "cnn8"))
+
+
+def test_fused_train_raises_on_a_train_wav_that_does_not_decode(e2e,
+                                                                 tmp_path):
+    """As in the JAX package (tpu_breath/cli.py calls load_wav_batch without
+    `errors`): train --fused raises on a train wav that does not decode,
+    while train from the cache (which precompute filled with zeros for
+    such a clip) runs. Both packages' load_wav_batch, called without
+    `errors`, raise on the same file; with `errors` the clip is zeros."""
+    root = tmp_path / "input"
+    shutil.copytree(e2e["root"], root)
+    train_rows = ds.load_frames(Paths(str(root)))[0]
+    tr_id = ds.split_train_val(train_rows)[0][0]["ID"]
+    broken = root / "train" / ds.train_wav_name(tr_id)
+    broken.write_bytes(b"RIFF-not-a-wav")
+    common = ["--root", str(root), "--out-root", str(tmp_path / "out"),
+              "--device", "cpu", "--archs", "cnn8", "--epochs", "1",
+              "--batch-size", "8"]
+    with pytest.raises(Exception) as decode_error:
+        wav_io.load_wav(str(broken))
+    with pytest.raises(decode_error.type):
+        cli.main(["train", "--fused", *common])
+    cli.main(["train", *common])
+    assert ckpt_lib.latest_checkpoint(cli.ckpt_dir(str(tmp_path / "out"),
+                                                   "cnn8"))
+
+    good = str(root / "train" / ds.train_wav_name(train_rows[-1]["ID"]))
+    assert good != str(broken)
+    for load in (jx_wav.load_wav_batch, wav_io.load_wav_batch):
+        assert load([good]).shape == (1, 16000)
+        with pytest.raises(decode_error.type):
+            load([good, str(broken)])
+    errors: list = []
+    got = wav_io.load_wav_batch([good, str(broken)], errors=errors)
+    assert [p for p, _ in errors] == [str(broken)]
+    assert not got[1].any() and got[0].any()
 
 
 @pytest.mark.parametrize("argv", [["precompute"], ["train"], ["e2e"],

@@ -109,3 +109,114 @@ def test_wrapper_takes_the_plain_version_on_cpu(clips, port):
     with pytest.raises(ValueError):
         cqt_kernel.cqt_mag(torch.from_numpy(clips[0]), SR, HOP, FMIN,
                            N_BINS, BPO)
+
+
+KEY = (SR, FMIN, N_BINS, BPO)
+# blocks a clip on the card's 132 SMs at B = 128 and 130, 66, 8 and 1
+SHARES = [1, 2, 16, 132]
+
+
+def _table_items(shares):
+    """Kernel D's work table, decoded: for each warp its items as rows
+    (k0, t0, frames, sig_off, bank_off, steps)."""
+    table = cqt_kernel.work_table(*KEY, HOP, 16000, shares)
+    slots = shares * cqt_kernel.WARPS
+    head = -(-(slots + 1) // 4) * 4
+    assert table.dtype == np.int32 and table[0] == 0
+    items = table[head:].reshape(-1, 4).astype(np.int64)
+    assert table[slots] == len(items)
+    word = items[:, 0] & 0xFFFFFFFF
+    frames = np.where(word >> 31, cqt_kernel.FRAMES // 2, cqt_kernel.FRAMES)
+    rows = np.stack([word & 0xFFFF, (word >> 16) & 0x7FFF, frames,
+                     *items[:, 1:].T], axis=1)
+    return [rows[table[w]:table[w + 1]] for w in range(slots)]
+
+
+def _cost(rows):
+    half = rows[:, 2] < cqt_kernel.FRAMES
+    return (np.where(half, cqt_kernel.HALF_STEP, 1.0) * rows[:, 5]
+            + cqt_kernel.REDUCE_STEPS)
+
+
+@pytest.mark.parametrize("shares", SHARES)
+def test_work_table_covers_every_bin_and_frame_once(shares):
+    """Every (bin, frame) of a clip's [252, 63] output falls in exactly one
+    item of kernel D's table, whatever the blocks a clip is dealt to; a
+    half item sums the samples of the whole item it is cut from."""
+    seen = np.zeros((N_BINS, 63), np.int64)
+    whole = {(k0, t0): (sig, bank, steps) for k0, t0, _, steps, sig, bank
+             in cqt_kernel.work_items(*KEY, HOP, 16000)}
+    for rows in _table_items(shares):
+        for k0, t0, frames, sig_off, bank_off, steps in rows:
+            seen[k0:k0 + cqt_kernel.BINS, t0:t0 + frames] += 1
+            t16 = t0 - t0 % cqt_kernel.FRAMES
+            assert (sig_off - HOP * (t0 - t16), bank_off,
+                    steps) == whole[k0, t16]
+    assert (seen == 1).all()
+
+
+def test_group_windows_cover_their_members():
+    """A group's window holds each member bin's nonzero window, and the
+    packed bank holds the members' entries over it (zero past it, for the
+    last step's overrun)."""
+    win = cqt_kernel.bank_windows(*KEY)
+    gw = cqt_kernel.group_windows(*KEY)
+    k_re, k_im = cqt_kernel._kernel_bank(*KEY)[:2]
+    bank, first = cqt_kernel._packed(*KEY)
+    nb = cqt_kernel.BINS
+    assert len(gw) == N_BINS // nb
+    for g, (lo, hi) in enumerate(gw):
+        members = win[g * nb:(g + 1) * nb]
+        assert (members[:, 0] >= lo).all() and (members[:, 1] <= hi).all()
+        rows = bank[first[g]:first[g] + hi - lo + cqt_kernel.LANES]
+        for j in range(nb):
+            np.testing.assert_array_equal(rows[:hi - lo, j],
+                                          k_re[g * nb + j, lo:hi])
+            np.testing.assert_array_equal(rows[:hi - lo, nb + j],
+                                          k_im[g * nb + j, lo:hi])
+        assert not rows[hi - lo:].any()
+
+
+@pytest.mark.parametrize("shares", SHARES)
+def test_work_table_balances_the_warps(shares):
+    """The heaviest slot's cost is within 2% of the larger of the mean over
+    the slots and the costliest item (which bounds it below at B = 8 and
+    under); items are cut in half only where a whole one costs more than
+    the mean."""
+    per_slot = _table_items(shares)
+    cost = np.array([_cost(r).sum() for r in per_slot])
+    biggest = max(_cost(r).max() for r in per_slot if len(r))
+    assert cost.max() <= 1.02 * max(cost.mean(), biggest)
+    steps = cqt_kernel.work_items(*KEY, HOP, 16000)[:, 3]
+    mean = (steps + cqt_kernel.REDUCE_STEPS).sum() / len(per_slot)
+    for rows in per_slot:
+        half = rows[:, 2] < cqt_kernel.FRAMES
+        assert (rows[half, 5] + cqt_kernel.REDUCE_STEPS > mean).all()
+        assert (rows[~half, 5] + cqt_kernel.REDUCE_STEPS <= mean).all()
+
+
+@pytest.mark.parametrize("shares", [1, 16])
+def test_work_table_summed_as_the_kernel_sums_gives_the_plain_version(
+        clips, port, shares):
+    """The items of the table (at B = 128 and at B = 8, where the longest
+    are cut in half), each summed as the kernel sums it (the staged row at
+    sig_off + hop t + i, the packed bank at bank_off + i, for i < 32
+    steps), in float64 here, give the plain version within 1e-6 of its
+    max: the offsets address the right samples and entries and the
+    clipped terms are zero."""
+    bank = cqt_kernel._packed(*KEY)[0].astype(np.float64)
+    pad = HOP * (cqt_kernel.FRAMES - 1)
+    nb = cqt_kernel.BINS
+    items = np.concatenate(_table_items(shares))
+    for c in (0, 3):  # a golden clip and the impulse
+        row = np.zeros(cqt_kernel.staged_len(16000, HOP))
+        row[pad:pad + 16000] = clips[c]
+        out = np.full((N_BINS, 63), np.nan)
+        for k0, t0, frames, sig_off, bank_off, steps in items:
+            span = cqt_kernel.LANES * steps
+            sig = np.stack([row[sig_off + HOP * t:sig_off + HOP * t + span]
+                            for t in range(frames)])
+            z = sig @ bank[bank_off:bank_off + span]  # [frames, re | im]
+            mag = np.hypot(z[:, :nb], z[:, nb:]).T[:, :63 - t0]
+            out[k0:k0 + nb, t0:t0 + frames] = mag
+        assert _rel(out, port[c]) < 1e-6, c

@@ -186,6 +186,47 @@ def test_epilogue_rows_do_not_depend_on_batch(clips):
             assert torch.equal(got[row], one[0]), (c, row)
 
 
+@pytest.mark.parametrize("b", [1, 8, 128, 130])
+def test_epilogue_f32_kernel_vs_plain_at_batch(clips, b):
+    """Kernel B' (plain=True) within 5e-5 of its plain version (f32 matmul,
+    TF32 off) at B = 1, 8, 128 and 130, on a quiet clip and silence among
+    others, one launch a call."""
+    from tpu_breath_torch.ops import spectral
+    from tpu_breath_torch.ops.cuda import epilogue_kernel as ek
+
+    fb = spectral.device_const(spectral.mel_matrix, 16000, 512, 64,
+                               device=clips.device)
+    for y in _quiet_and_silent(clips, b):
+        mag = spectral.stft_mag_cr(y, 512, 256).contiguous()
+        before = ek.LAUNCHES_F32
+        got = ek.fused_epilogue(mag, fb, plain=True)
+        torch.cuda.synchronize()
+        assert ek.LAUNCHES_F32 == before + 1
+        with spectral.full_f32():
+            ref = ek.fused_epilogue_plain(mag, fb, plain=True)
+        assert got.shape == (y.shape[0], 64, 63)
+        assert float((got - ref).abs().max()) <= 5e-5
+
+
+def test_epilogue_f32_rows_do_not_depend_on_batch(clips):
+    """A clip's kernel B' rows are bit-equal alone (B = 1), as row 0 of a
+    batch of 128 and as its row 77, on the same magnitudes."""
+    from tpu_breath_torch.ops import spectral
+    from tpu_breath_torch.ops.cuda import epilogue_kernel as ek
+
+    fb = spectral.device_const(spectral.mel_matrix, 16000, 512, 64,
+                               device=clips.device)
+    mag = spectral.stft_mag_cr(_batch(clips, 128, seed=5), 512,
+                               256).contiguous()
+    for c in (0, 4, 6):  # a golden clip, quiet noise, silence
+        one = ek.fused_epilogue(mag[c:c + 1].contiguous(), fb, plain=True)
+        for row in (0, 77):
+            mb = mag.clone()
+            mb[[row, c]] = mb[[c, row]]
+            got = ek.fused_epilogue(mb, fb, plain=True)
+            assert torch.equal(got[row], one[0]), (c, row)
+
+
 def test_epilogue_kernel_within_1e5(clips):
     from tpu_breath_torch.ops import spectral
     from tpu_breath_torch.ops.cuda import epilogue_kernel as ek
@@ -326,12 +367,70 @@ def test_peaks_kernel_exact_on_adversarial_sets(clips, b):
             assert torch.equal(vals, rvals), name
 
 
-@pytest.mark.parametrize("kernel", ["C", "B"])
+@pytest.mark.parametrize("n", [40_000, 100_000])
+def test_peaks_kernel_exact_on_long_rows(clips, n):
+    """Rows past kernel C's shared-memory list (the wrapper then keeps it
+    in device memory), B = 8, distance 1,600: vals and kept equal the plain
+    version exactly, and the survivor counts equal scipy's find_peaks."""
+    import scipy.signal
+    from tpu_breath_torch.ops import peaks
+    from tpu_breath_torch.ops.cuda import peaks_kernel as pk
+
+    assert n > pk.SMEM_SAMPLES
+    rng = np.random.default_rng(n)
+    env = np.abs(scipy.signal.hilbert(rng.standard_normal((8, n)))
+                 ).astype(np.float32)
+    env[1::2] = np.round(env[1::2] * 64) / 64  # plateaus and ties
+    h = env.mean(axis=-1, keepdims=True)
+    x = torch.from_numpy(env).cuda()
+    scores = torch.where(peaks.local_maxima(x)
+                         & (x >= torch.from_numpy(h).cuda()), x,
+                         -torch.inf).contiguous()
+    rounds = n // 1600 + 2
+    vals, kept = pk.suppress_peaks(scores, 1600, rounds)
+    torch.cuda.synchronize()
+    rvals, rkept = pk.suppress_peaks_plain(scores, 1600, rounds)
+    assert torch.equal(kept, rkept)
+    assert torch.equal(vals, rvals)
+    for i in range(8):
+        found, _ = scipy.signal.find_peaks(env[i], height=float(h[i, 0]),
+                                           distance=1600)
+        assert int(kept[i].sum()) == len(found), i
+
+
+def _captured_node_types(call) -> list[int]:
+    """The type (libcuda's CUgraphNodeType, 0 a kernel) of each node of
+    the CUDA graph captured from one call."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        call()
+    raw = ctypes.c_void_p(int(g.raw_cuda_graph()))
+    count = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(raw, None, ctypes.byref(count)) == 0
+    nodes = (ctypes.c_void_p * count.value)()
+    assert cu.cuGraphGetNodes(raw, nodes, ctypes.byref(count)) == 0
+    types = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                     ctypes.byref(kind)) == 0
+        types.append(kind.value)
+    g.reset()
+    return types
+
+
+@pytest.mark.parametrize("kernel", ["C", "B", "B'", "D"])
 def test_wrapper_call_is_one_kernel_launch(clips, kernel):
-    """One call of kernel C's or B's wrapper on CUDA tensors runs one
-    kernel on the card and nothing else (torch.profiler's record of a
-    warm call): its outputs are allocated, not converted."""
+    """One call of kernel C's, B's, B''s or D's wrapper on CUDA tensors runs
+    one kernel on the card and nothing else: a CUDA graph captured from a
+    warm call holds one node, a kernel, and the wrapper's launch count went
+    up by one (its kernel). Its outputs are allocated, not converted."""
+    from tpu_breath_torch.config import DEFAULT_FEATURES as SPEC
     from tpu_breath_torch.ops import spectral
+    from tpu_breath_torch.ops.cuda import cqt_kernel as ck
     from tpu_breath_torch.ops.cuda import epilogue_kernel as ek
     from tpu_breath_torch.ops.cuda import peaks_kernel as pk
 
@@ -340,23 +439,39 @@ def test_wrapper_call_is_one_kernel_launch(clips, kernel):
         ).values() if r == peaks_cases.ROUNDS])).cuda()
         call = lambda: pk.suppress_peaks(scores, peaks_cases.DISTANCE,
                                          peaks_cases.ROUNDS)
-        name = "suppress_kernel"
+        count = lambda: pk.LAUNCHES
+    elif kernel == "D":
+        call = lambda: ck.cqt_mag(clips, 16000, 256, SPEC.cqt_fmin, 252, 36)
+        count = lambda: ck.LAUNCHES
     else:
         mag = spectral.stft_mag_cr(clips, 512, 256).contiguous()
         fb = spectral.device_const(spectral.mel_matrix, 16000, 512, 64,
                                    device=clips.device)
-        call = lambda: ek.fused_epilogue(mag, fb)
-        name = "epilogue_kernel"
+        call = lambda: ek.fused_epilogue(mag, fb, plain=kernel == "B'")
+        count = lambda: (ek.LAUNCHES_F32 if kernel == "B'"
+                         else ek.LAUNCHES)
     call()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        call()
-        torch.cuda.synchronize()
-    on_card = [e.name for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert len(on_card) == 1 and name in on_card[0], on_card
+    before = count()
+    assert _captured_node_types(call) == [0]
+    assert count() == before + 1
+
+
+@pytest.mark.parametrize("plain", [False, True])
+def test_epilogue_kernels_refuse_a_clip_past_their_tiles(clips, plain):
+    """Kernels B and B' hold a clip's outputs in one block's tiles: on the
+    card they take T <= 64 frames, F <= 264 and G <= 64, and a clip of 65
+    frames raises ValueError before any launch (the JAX kernel takes any
+    T)."""
+    from tpu_breath_torch.ops.cuda import epilogue_kernel as ek
+
+    mag = torch.rand(2, 257, 65, device="cuda")
+    fb = torch.rand(64, 257, device="cuda")
+    before = (ek.LAUNCHES, ek.LAUNCHES_F32)
+    with pytest.raises(ValueError, match="T 65"):
+        ek.fused_epilogue(mag, fb, plain=plain)
+    assert (ek.LAUNCHES, ek.LAUNCHES_F32) == before
+    ek.fused_epilogue(mag[..., :64].contiguous(), fb, plain=plain)
 
 
 def test_features_gpu_match_cpu(clips):
@@ -377,10 +492,11 @@ def test_wrappers_reject_wrong_dtype(clips):
         pk.suppress_peaks(clips.double(), 1600, 12)
 
 
-@pytest.mark.parametrize("b", [8, 128])
+@pytest.mark.parametrize("b", [1, 8, 128, 130])
 def test_cqt_kernel_within_1e5(clips, b):
-    """Kernel D against its plain version (float64) at the chunk sizes:
-    max|a - b| / max|b| < 1e-5 (tests/test_pallas_cqt.py)."""
+    """Kernel D against its plain version (float64) at B = 1, 8, 128 and
+    130 (the work table deals a clip to 132, 16, 1 and 1 blocks): one
+    launch a call, max|a - b| / max|b| < 1e-5 (tests/test_pallas_cqt.py)."""
     from tpu_breath_torch.config import DEFAULT_FEATURES as SPEC
     from tpu_breath_torch.ops.cuda import cqt_kernel as ck
 
@@ -395,6 +511,62 @@ def test_cqt_kernel_within_1e5(clips, b):
     ref = ck.cqt_mag_plain(y, *args)
     assert got.shape == ref.shape == (b, 252, 63)
     assert float((got - ref).abs().max() / ref.abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("hop", [160, 512])
+def test_cqt_kernel_at_other_hops(clips, hop):
+    """Kernel D at hops other than the main path's 256 (its code with the
+    hop a runtime value): within 1e-5 of the max of its plain version, at
+    B = 8."""
+    from tpu_breath_torch.config import DEFAULT_FEATURES as SPEC
+    from tpu_breath_torch.ops.cuda import cqt_kernel as ck
+
+    y = _batch(clips, 8, seed=hop)
+    args = (16000, hop, SPEC.cqt_fmin, 252, 36)
+    got = ck.cqt_mag(y, *args)
+    torch.cuda.synchronize()
+    ref = ck.cqt_mag_plain(y, *args)
+    assert got.shape == ref.shape == (8, 252, 1 + 16000 // hop)
+    assert float((got - ref).abs().max() / ref.abs().max()) < 1e-5
+
+
+def test_cqt_rows_do_not_depend_on_batch(clips):
+    """A clip's kernel D rows are bit-equal alone (B = 1, the clip dealt to
+    132 blocks), in a batch of 8 (16 blocks a clip) and as rows 0 and 77 of
+    a batch of 128 (one block a clip)."""
+    from tpu_breath_torch.config import DEFAULT_FEATURES as SPEC
+    from tpu_breath_torch.ops.cuda import cqt_kernel as ck
+
+    args = (16000, 256, SPEC.cqt_fmin, 252, 36)
+    y = _batch(clips, 128, seed=7)
+    for c in (0, 4, 5):  # a golden clip, quiet noise, the impulse
+        one = ck.cqt_mag(y[c:c + 1].contiguous(), *args)
+        for b, row in ((8, 0), (8, 5), (128, 0), (128, 77)):
+            yb = y.clone()
+            yb[[row, c]] = yb[[c, row]]
+            got = ck.cqt_mag(yb[:b].contiguous(), *args)
+            assert torch.equal(got[row], one[0]), (c, b, row)
+
+
+def test_cqt_kernel_takes_more_clips_than_a_grid_column(clips):
+    """Kernel D at B = 65,537, past the 65,535 blocks of a grid's y or z
+    dimension: the rows of the clips at 0, 40,000 and 65,536 are bit-equal
+    to the kernel's rows of those clips alone, and a silent clip's row is
+    zero."""
+    from tpu_breath_torch.config import DEFAULT_FEATURES as SPEC
+    from tpu_breath_torch.ops.cuda import cqt_kernel as ck
+
+    args = (16000, 256, SPEC.cqt_fmin, 252, 36)
+    rows = (0, 40_000, 65_536)
+    y = torch.zeros(65_537, 16000, device="cuda")
+    y[list(rows)] = clips[:3]
+    got = ck.cqt_mag(y, *args)
+    for c, row in enumerate(rows):
+        one = ck.cqt_mag(clips[c:c + 1].contiguous(), *args)
+        assert torch.equal(got[row], one[0]), row
+    assert not got[1].any()
+    del y, got
+    torch.cuda.empty_cache()
 
 
 def test_feature_call_leaves_tf32_and_the_train_loss_alone(clips):

@@ -33,16 +33,42 @@ def envs():
     return np.stack(out)
 
 
-@pytest.mark.parametrize("use_pallas", [False, True])
-def test_stats_match_jax(envs, use_pallas):
+def _assert_stats_match_jax(envs, use_pallas):
     h = envs.mean(axis=-1)
-    ref = jx_peaks.find_peaks_stats_batched(jnp.asarray(envs), jnp.asarray(h),
-                                            SR // 10, use_pallas=use_pallas)
+    ref = jax.jit(lambda x, y: jx_peaks.find_peaks_stats_batched(
+        x, y, SR // 10, use_pallas=use_pallas))(jnp.asarray(envs),
+                                                jnp.asarray(h))
     got = peaks.find_peaks_stats_batched(torch.from_numpy(envs),
                                          torch.from_numpy(h), SR // 10)
     for a, b in zip(ref, got):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=1e-5,
                                    rtol=0)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref[0]))
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_stats_match_jax(envs, use_pallas):
+    _assert_stats_match_jax(envs, use_pallas)
+
+
+def test_stats_match_jax_on_rows_past_the_shared_memory_list():
+    """Rows of 40,000 samples, past kernel C's shared-memory list (its
+    wrapper then keeps the list in device memory): the plain version gives
+    JAX's XLA path's counts exactly and its heights' mean and std within
+    the comparison above, and scipy's counts."""
+    assert 40_000 > peaks_kernel.SMEM_SAMPLES
+    rng = np.random.default_rng(40)
+    envs = np.stack([np.abs(scipy.signal.hilbert(rng.standard_normal(40_000)))
+                     for _ in range(2)]).astype(np.float32)
+    envs[1] = np.round(envs[1] * 64) / 64
+    _assert_stats_match_jax(envs, use_pallas=False)
+    n = peaks.find_peaks_stats_batched(
+        torch.from_numpy(envs), torch.from_numpy(envs.mean(axis=-1)),
+        SR // 10)[0]
+    for i, env in enumerate(envs):
+        pk, _ = scipy.signal.find_peaks(env, height=float(env.mean()),
+                                        distance=SR // 10)
+        assert int(n[i]) == len(pk) >= 15
 
 
 def test_counts_and_heights_match_scipy(envs):

@@ -196,12 +196,9 @@ def cmd_train(args) -> None:
     fused_wavs = None
     if args.fused:
         print("fused mode: training from the train split's wavs")
-        errors: list = []  # a failed clip is zeros, as in precompute
         fused_wavs = wav_io.load_wav_batch(
             [os.path.join(paths.train_audio_dir, ds.train_wav_name(i))
-             for i in tr.ids], spec.expected_len, errors=errors)
-        for path, msg in errors:
-            print(f"error: {path}: {msg}")
+             for i in tr.ids], spec.expected_len)
     with (profiling.trace(args.profile, device) if args.profile
           else contextlib.nullcontext()):
         results = {arch: _train_one(arch, _arch_cfg(arch, args), tr, va,

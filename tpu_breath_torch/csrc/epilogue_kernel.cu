@@ -10,8 +10,10 @@
 //    log1p runs in float64 and is rounded once. The z-score divides by a std
 //    of ~0.005 on quiet clips, which is why f32 accumulation is not enough.
 //  - B', plain=True (epilogue_kernel.py:69-72): an f32 FMA chain and log1pf,
-//    the like-for-like partner of a plain f32 GEMM + log1p.
-// Both take the z-score's mean and variance as float64 sums (gt_epilogue.cuh).
+//    the like-for-like partner of a plain f32 GEMM + log1p at HIGHEST
+//    precision (no TF32, no tensor cores).
+// Both take the z-score's mean and variance as float64 sums in tile order
+// (gt_epilogue.cuh, znorm_tiles).
 //
 // What bounds B on the H100: per clip 2 * G * F * T = 2.1 MFLOP of float64
 // (2.2 MFLOP with the padding) against 130 KB in (65 KB of magnitudes, fb's
@@ -34,8 +36,21 @@
 // blocks a clip, each half the frames (faster at B = 8, slower at
 // B = 128, where every block stages all of fb).
 //
-// B' keeps its first design: one block of 8 warps per clip, each output a
-// serial f32 FMA chain with fb read through L1.
+// B' is the same kernel with the product on the CUDA cores
+// (fb_znorm_tiles_f32): per clip 2 * G * F * T = 2.1 MFLOP of f32, again
+// operations-bound on paper (67 TFLOP/s) and latency-bound in fact, one
+// clip an SM. The staging, the 16 warps and their tiles are B's; each lane
+// runs the 8 f32 FMA chains of its accumulator fragment (2 bands by 4
+// frames) side by side, f = 0 .. F - 1 in order and then the zero padding,
+// so each output's bits are those of one serial chain; four steps of f
+// read 2 x 4 fb values by 16-byte loads and 8 pairs of |S| values from
+// shared memory (broadcast, conflict-free) for 32 FMAs. Measured on the
+// card (PERF.md): ~4 us more than B a call, the product's issue rate. Not
+// kept: staging |S| and fb in four ranges of f, the product starting on
+// the first (slower: four barriers). Its first design, one block of 8
+// warps a clip, each thread working through ~16 outputs one serial chain
+// at a time with fb read through L1 and two block-wide sums for the
+// z-score, was slower than its plain version.
 #include <cuda_runtime.h>
 
 #include "gt_epilogue.cuh"
@@ -50,6 +65,8 @@ constexpr int kTilesPerWarp = kTiles / (kThreads / 32);
 constexpr int kSmemBytes = (kSFloats + kFbFloats) * 4;
 static_assert(kNTiles % kTilesPerWarp == 0, "a warp's tiles share a row");
 
+// kF32: kernel B' (the product in f32 on the CUDA cores), else B.
+template <bool kF32>
 __global__ void __launch_bounds__(kThreads, 1)
 epilogue_kernel(const float* __restrict__ mag,  // [B, F, T]
                 const float* __restrict__ fb,   // [G, F]
@@ -75,59 +92,43 @@ epilogue_kernel(const float* __restrict__ mag,  // [B, F, T]
 
   const int warp = threadIdx.x >> 5;
   constexpr int kWarpsPerRow = kNTiles / kTilesPerWarp;
-  fb_znorm_tiles<kTilesPerWarp>(
-      fbs, S, warp / kWarpsPerRow, kTilesPerWarp * (warp % kWarpsPerRow),
-      true, G, T, part, out + static_cast<size_t>(blockIdx.x) * G * T,
-      [&](int k, int tile, double x) { part[k][tile] = x; },
-      [] { __syncthreads(); });
+  const int mt = warp / kWarpsPerRow;
+  const int nt0 = kTilesPerWarp * (warp % kWarpsPerRow);
+  float* dst = out + static_cast<size_t>(blockIdx.x) * G * T;
+  const auto publish = [&](int k, int tile, double x) { part[k][tile] = x; };
+  const auto sync = [] { __syncthreads(); };
+  if constexpr (kF32) {
+    fb_znorm_tiles_f32<kTilesPerWarp>(fbs, S, F, mt, nt0, true, G, T, part,
+                                      dst, publish, sync);
+  } else {
+    fb_znorm_tiles<kTilesPerWarp>(fbs, S, mt, nt0, true, G, T, part, dst,
+                                  publish, sync);
+  }
 }
 
-constexpr int kF32Threads = 256;
+int g_smem[2][smem_once::kMaxDevices];
 
-__global__ void __launch_bounds__(kF32Threads)
-epilogue_f32_kernel(const float* __restrict__ mag,  // [B, F, T]
-                    const float* __restrict__ fb,   // [G, F]
-                    float* __restrict__ out,        // [B, G, T]
-                    int F, int T, int G) {
-  extern __shared__ float smem_f32[];
-  float* smag = smem_f32;          // [F * T]
-  float* sval = smem_f32 + F * T;  // [G * T]
-  __shared__ double scratch[33];
-
-  const int ft = F * T;
-  const float* m = mag + static_cast<size_t>(blockIdx.x) * ft;
-  for (int i = threadIdx.x; i < ft; i += blockDim.x) smag[i] = m[i];
-  __syncthreads();
-  epilogue_clip_f32(smag, fb, sval,
-                    out + static_cast<size_t>(blockIdx.x) * G * T, F, T, G,
-                    scratch);
+template <bool kF32>
+cudaError_t launch(const float* mag, const float* fb, float* out, int b,
+                   int F, int T, int G, cudaStream_t s) {
+  const cudaError_t err = smem_once::raise(
+      reinterpret_cast<const void*>(epilogue_kernel<kF32>), kSmemBytes,
+      g_smem[kF32]);
+  if (err != cudaSuccess || b == 0) return err;
+  epilogue_kernel<kF32><<<b, kThreads, kSmemBytes, s>>>(mag, fb, out, F, T,
+                                                        G);
+  return cudaGetLastError();
 }
-
-int g_smem[smem_once::kMaxDevices];
-int g_smem_f32[smem_once::kMaxDevices];
 
 }  // namespace
 
 extern "C" int fused_epilogue_launch(const float* mag, const float* fb,
                                      float* out, int b, int F, int T, int G,
                                      int f32, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (f32) {
-    const int smem = (F * T + G * T) * static_cast<int>(sizeof(float));
-    const cudaError_t err = smem_once::raise(
-        reinterpret_cast<const void*>(epilogue_f32_kernel), smem, g_smem_f32);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (b == 0) return 0;
-    epilogue_f32_kernel<<<b, kF32Threads, smem, s>>>(mag, fb, out, F, T, G);
-    return static_cast<int>(cudaGetLastError());
-  }
   if (T < 1 || T > kRows || F < 1 || F > kMaxF || G < 1 || G > kBands) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaError_t err = smem_once::raise(
-      reinterpret_cast<const void*>(epilogue_kernel), kSmemBytes, g_smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (b == 0) return 0;
-  epilogue_kernel<<<b, kThreads, kSmemBytes, s>>>(mag, fb, out, F, T, G);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(f32 ? launch<true>(mag, fb, out, b, F, T, G, s)
+                              : launch<false>(mag, fb, out, b, F, T, G, s));
 }

@@ -1,15 +1,17 @@
 // The gammatone channel's epilogue for one clip,
 //   out[g, t] = znorm(f32(log1p(sum_f fb[g, f] * mag[f, t])))
-// over the whole [G, T] clip, in two forms:
+// over the whole [G, T] clip, from |S| and fb in shared memory, padded with
+// zeros, in 32 output tiles of 16 x 8, in two forms:
 // - fb_znorm_tiles, the float64 form of kernels B (epilogue_kernel.cu) and
-//   B'' (gammatone_kernel.cu): |S| and fb in shared memory, padded with
-//   zeros; the product on the float64 tensor cores (mma.sync.m16n8k8.f64)
-//   in 32 output tiles of 16 x 8, log1p in float64 rounded once;
-// - epilogue_clip_f32, kernel B' (epilogue_kernel.cu): an f32 FMA chain and
-//   log1pf, one block a clip.
-// Both take the z-score's mean and variance as float64 sums of the f32
-// values, each rounded to f32 once. This header also holds the cp.async and
-// DMMA helpers that gammatone_kernel.cu's DFT uses.
+//   B'' (gammatone_kernel.cu): the product on the float64 tensor cores
+//   (mma.sync.m16n8k8.f64), log1p in float64 rounded once;
+// - fb_znorm_tiles_f32, kernel B' (epilogue_kernel.cu): each output one f32
+//   FMA chain in f order on the CUDA cores, then log1pf.
+// A lane holds the outputs of its DMMA accumulator fragment in both, and
+// both end in znorm_tiles: the z-score's mean and variance as float64 sums
+// of the f32 values in tile order, each rounded to f32 once. This header
+// also holds the cp.async and DMMA helpers that gammatone_kernel.cu's DFT
+// uses.
 #pragma once
 #include <cuda_runtime.h>
 
@@ -93,36 +95,23 @@ __device__ __forceinline__ void stage_fb(float* fbs,
   }
 }
 
-// The output tiles (mt, nt0 + j), j < N, of one clip, by one warp: DMMA of
-// fbs [kBands][kFbStride] by S [kMaxF][kSStride] (|S| f-major, both padded
-// with zeros), f32(log1p) of the sums, then the z-score over the clip's
-// [G, T] into dst [G, T] (global). live = false: the warp has no tiles but
-// takes part in the syncs. The z-score's sums: each tile's sum (the warp's
-// lanes' values added in fragment order, then across the warp) goes to
-// publish(k, tile, sum) (k = 0 the values, 1 the squared deviations), which
-// writes it into part[k][tile] of every block the clip spans; sync() makes
-// the tables whole; each block adds its table in tile order. So a clip's
-// bits depend neither on N nor on how many blocks share it, and not on B.
+// The z-score of one clip over its [G, T] outputs, from the f32 values
+// v[j][i] a lane holds of the output tiles (mt, nt0 + j), j < N, in the
+// DMMA accumulator layout (row 16 mt + g + 8 (i / 2), column
+// 8 (nt0 + j) + 2 t + i % 2, g = lane / 4, t = lane % 4), written into
+// dst [G, T] (global). live = false: the warp has no tiles but takes part
+// in the syncs. Each tile's sum (the warp's lanes' values added in fragment
+// order, then across the warp) goes to publish(k, tile, sum) (k = 0 the
+// values, 1 the squared deviations), which writes it into part[k][tile] of
+// every block the clip spans; sync() makes the tables whole; each block
+// adds its table in tile order. So a clip's bits depend neither on N nor on
+// how many blocks share it, and not on B.
 template <int N, class Publish, class Sync>
-__device__ __forceinline__ void fb_znorm_tiles(
-    const float* fbs, const float* S, int mt, int nt0, bool live, int G,
-    int T, double (*part)[kTiles], float* __restrict__ dst, Publish publish,
+__device__ __forceinline__ void znorm_tiles(
+    const float (&v)[N][4], int mt, int nt0, bool live, int G, int T,
+    double (*part)[kTiles], float* __restrict__ dst, Publish publish,
     Sync sync) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  double c[N][4] = {};
-  if (live) {
-#pragma unroll 3
-    for (int s = 0; s < kMaxF / 8; ++s) {
-      double af[4];
-      load_a<kFbStride>(af, fbs + (16 * mt + g) * kFbStride + 8 * s + t);
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        const float* bp = S + (8 * s + t) * kSStride + 8 * (nt0 + j) + g;
-        mma_f64(c[j], af, bp[0], bp[4 * kSStride]);
-      }
-    }
-  }
-  float v[N][4];
   bool valid[N][4];
 #pragma unroll
   for (int j = 0; j < N; ++j) {
@@ -132,7 +121,6 @@ __device__ __forceinline__ void fb_znorm_tiles(
       const int gr = 16 * mt + g + 8 * (i >> 1);
       const int tc = 8 * (nt0 + j) + 2 * t + (i & 1);
       valid[j][i] = live && gr < G && tc < T;
-      v[j][i] = __double2float_rn(log1p(c[j][i]));
       if (valid[j][i]) sum += v[j][i];
     }
     sum = warp_sum(sum);
@@ -172,55 +160,82 @@ __device__ __forceinline__ void fb_znorm_tiles(
   }
 }
 
-__device__ __forceinline__ double block_sum(double v, double* scratch) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    double w = lane < (blockDim.x >> 5) ? scratch[lane] : 0.0;
-    for (int off = 16; off > 0; off >>= 1) w += __shfl_down_sync(0xffffffffu, w, off);
-    if (lane == 0) scratch[32] = w;
+// The output tiles (mt, nt0 + j), j < N, of one clip, by one warp: DMMA of
+// fbs [kBands][kFbStride] by S [kMaxF][kSStride] (|S| f-major, both padded
+// with zeros), f32(log1p) of the sums, then znorm_tiles (the arguments
+// after nt0 are its own).
+template <int N, class Publish, class Sync>
+__device__ __forceinline__ void fb_znorm_tiles(
+    const float* fbs, const float* S, int mt, int nt0, bool live, int G,
+    int T, double (*part)[kTiles], float* __restrict__ dst, Publish publish,
+    Sync sync) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  double c[N][4] = {};
+  if (live) {
+#pragma unroll 3
+    for (int s = 0; s < kMaxF / 8; ++s) {
+      double af[4];
+      load_a<kFbStride>(af, fbs + (16 * mt + g) * kFbStride + 8 * s + t);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float* bp = S + (8 * s + t) * kSStride + 8 * (nt0 + j) + g;
+        mma_f64(c[j], af, bp[0], bp[4 * kSStride]);
+      }
+    }
   }
-  __syncthreads();
-  const double total = scratch[32];
-  __syncthreads();
-  return total;
+  float v[N][4];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[j][i] = __double2float_rn(log1p(c[j][i]));
+  }
+  znorm_tiles<N>(v, mt, nt0, live, G, T, part, dst, publish, sync);
 }
 
-// Kernel B': smag [F * T] (shared, f-major), fb [G, F] (global), sval
-// [G * T] shared scratch, dst [G * T] (global); scratch holds 33 doubles.
-// The product is an f32 FMA chain, then log1pf. blockDim.x must be a
-// multiple of 32, at most 1024.
-__device__ __forceinline__ void epilogue_clip_f32(const float* smag,
-                                                  const float* __restrict__ fb,
-                                                  float* sval, float* dst,
-                                                  int F, int T, int G,
-                                                  double* scratch) {
-  const int gt = G * T;
-  double part = 0.0;
-  for (int o = threadIdx.x; o < gt; o += blockDim.x) {
-    const int g = o / T, t = o - g * T;
-    const float* row = fb + static_cast<size_t>(g) * F;
-    float acc = 0.0f;
-    for (int f = 0; f < F; ++f) acc = fmaf(__ldg(row + f), smag[f * T + t], acc);
-    const float v = log1pf(acc);
-    sval[o] = v;
-    part += v;
+// Kernel B': the same tiles as fb_znorm_tiles, each output
+// sum_f fb[g, f] * mag[f, t] one f32 FMA chain for f = 0 .. F - 1 (a lane's
+// 8 chains side by side: 2 bands by 4 frames, its fragment's outputs), then
+// log1pf and znorm_tiles (the arguments after nt0 are its own).
+template <int N, class Publish, class Sync>
+__device__ __forceinline__ void fb_znorm_tiles_f32(
+    const float* fbs, const float* S, int F, int mt, int nt0, bool live,
+    int G, int T, double (*part)[kTiles], float* __restrict__ dst,
+    Publish publish, Sync sync) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float c[N][4] = {};
+  if (live) {
+    const float* a = fbs + (16 * mt + g) * kFbStride;
+    const float* b = S + 8 * nt0 + 2 * t;
+    // f in fours, fb by 16-byte loads; the padding's terms (f >= F, zero
+    // fb and |S|) leave the sums as they are
+#pragma unroll 1
+    for (int f4 = 0; f4 < F; f4 += 4) {
+      const float4 a0 = *reinterpret_cast<const float4*>(a + f4);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(a + 8 * kFbStride + f4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float w0 = e == 0 ? a0.x : e == 1 ? a0.y : e == 2 ? a0.z : a0.w;
+        const float w1 = e == 0 ? a1.x : e == 1 ? a1.y : e == 2 ? a1.z : a1.w;
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          const float2 x = *reinterpret_cast<const float2*>(
+              b + (f4 + e) * kSStride + 8 * j);
+          c[j][0] = fmaf(w0, x.x, c[j][0]);
+          c[j][1] = fmaf(w0, x.y, c[j][1]);
+          c[j][2] = fmaf(w1, x.x, c[j][2]);
+          c[j][3] = fmaf(w1, x.y, c[j][3]);
+        }
+      }
+    }
   }
-  const float mean = __double2float_rn(block_sum(part, scratch) / gt);
-
-  part = 0.0;
-  for (int o = threadIdx.x; o < gt; o += blockDim.x) {
-    const float d = __fsub_rn(sval[o], mean);
-    part += static_cast<double>(d) * d;
+  float v[N][4];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[j][i] = log1pf(c[j][i]);
   }
-  const float var = __double2float_rn(block_sum(part, scratch) / gt);
-  const float denom = __fadd_rn(__fsqrt_rn(var), 1e-8f);
-
-  for (int o = threadIdx.x; o < gt; o += blockDim.x) {
-    dst[o] = __fdiv_rn(__fsub_rn(sval[o], mean), denom);
-  }
+  znorm_tiles<N>(v, mt, nt0, live, G, T, part, dst, publish, sync);
 }
 
 }  // namespace gt_epilogue

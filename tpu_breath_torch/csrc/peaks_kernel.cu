@@ -39,8 +39,12 @@
 //   rather than 16 halve a touched run's re-scan (the dense worst case).
 // - The rounds stop at the first one that finds nothing; the rest are
 //   written as empty.
-// The dynamic shared memory (8 bytes a score, the list's most) is raised
-// once per device, not at every launch.
+// The list takes 8 bytes a score at most. Up to kSmemSamples scores a row it
+// lives in dynamic shared memory, raised once per device, not at every
+// launch; past that the same code keeps it in a scratch buffer in device
+// memory that the caller allocates (8 bytes a score, a row's own part for
+// each block), chosen before the launch from n. A block reads back only its
+// own part, after a barrier; the rest of the code is the same.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -55,6 +59,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kPer = 4;                     // 16-byte loads a thread a pass
 constexpr int kPass = kPer * 4 * kThreads;  // 16,384 scores a pass
 constexpr int kNoPos = 0x7fffffff;
+constexpr int kSmemSamples = 28000;  // 224,000 bytes of list, under 227 KB
 static_assert(kPer * kWarps == 4 * 32, "one warp scans the totals, 4 a lane");
 
 // A float's key: unsigned, in the float's order; -0 is +0.
@@ -89,13 +94,23 @@ __device__ __forceinline__ int warp_incl_scan(int v) {
   return v;
 }
 
+// kGlobal: the list in `scratch` ([B, 2n] words, the row's part at
+// blockIdx.x * 2n) instead of dynamic shared memory.
+template <bool kGlobal>
 __global__ void __launch_bounds__(kThreads, 1)
 suppress_kernel(const float* __restrict__ scores, float* __restrict__ vals,
-                unsigned char* __restrict__ kept, int n, int distance,
-                int rounds) {
+                unsigned char* __restrict__ kept, unsigned* scratch, int n,
+                int distance, int rounds) {
   extern __shared__ __align__(16) unsigned char smem[];
-  unsigned* ck = reinterpret_cast<unsigned*>(smem);  // [n] candidate keys
-  int* ci = reinterpret_cast<int*>(smem + 4 * static_cast<size_t>(n));
+  unsigned* ck;  // [n] candidate keys
+  int* ci;       // [n] their indices
+  if constexpr (kGlobal) {
+    ck = scratch + 2 * static_cast<size_t>(blockIdx.x) * n;
+    ci = reinterpret_cast<int*>(ck + n);
+  } else {
+    ck = reinterpret_cast<unsigned*>(smem);
+    ci = reinterpret_cast<int*>(smem + 4 * static_cast<size_t>(n));
+  }
   __shared__ int tot[kPer * kWarps];  // per (load, warp): count, then offset
   __shared__ int pass_count;
   __shared__ unsigned tab_k[2][kWarps];  // each run's best, double-buffered
@@ -220,18 +235,29 @@ int g_smem[smem_once::kMaxDevices];
 }  // namespace
 
 // kept: one byte a round (a torch.bool tensor), 1 where a peak was kept.
+// scratch: null for n <= kSmemSamples, else [b, 2n] 4-byte words.
 extern "C" int suppress_peaks_launch(const float* scores, float* vals,
-                                     unsigned char* kept, int b, int n,
-                                     int distance, int rounds, void* stream) {
-  if (n < 1 || distance < 1 || rounds < 0) {
+                                     unsigned char* kept, unsigned* scratch,
+                                     int b, int n, int distance, int rounds,
+                                     void* stream) {
+  if (n < 1 || distance < 1 || rounds < 0 ||
+      (n > kSmemSamples) != (scratch != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (scratch != nullptr) {
+    if (b == 0 || rounds == 0) return 0;
+    suppress_kernel<true><<<b, kThreads, 0, s>>>(scores, vals, kept, scratch,
+                                                 n, distance, rounds);
+    return static_cast<int>(cudaGetLastError());
   }
   const int smem = 8 * n;
   const cudaError_t err = smem_once::raise(
-      reinterpret_cast<const void*>(suppress_kernel), smem, g_smem);
+      reinterpret_cast<const void*>(suppress_kernel<false>), smem, g_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (b == 0 || rounds == 0) return 0;
-  suppress_kernel<<<b, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      scores, vals, kept, n, distance, rounds);
+  suppress_kernel<false><<<b, kThreads, smem, s>>>(scores, vals, kept,
+                                                   nullptr, n, distance,
+                                                   rounds);
   return static_cast<int>(cudaGetLastError());
 }

@@ -31,8 +31,8 @@ SIGNATURES = {
     "tuning_index_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
     "fused_epilogue_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "fused_gammatone_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "suppress_peaks_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "cqt_mag_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+    "suppress_peaks_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "cqt_mag_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                        _P],
 }
 

@@ -5,6 +5,11 @@ Counterpart of tpu_breath/ops/pallas/peaks_kernel.py::suppress_peaks_pallas:
 index), each masking a +/-(distance-1) window around the peak it keeps.
 The kernel reads a clip's row once into a list of its candidates and
 re-scans only the parts of the list a window changed; one launch a call.
+The list takes 8 bytes a score at most: up to SMEM_SAMPLES scores a row it
+is kept in shared memory, as on the main path (16,000 samples); a longer
+row has it in a scratch buffer in device memory that the wrapper allocates
+(8 bytes a score of the batch). The wrapper picks from n before the launch;
+the kernel's code and results are the same either way.
 """
 from __future__ import annotations
 
@@ -12,8 +17,9 @@ import torch
 
 from tpu_breath_torch.ops.cuda import _build
 
-MAX_SAMPLES = 28_000  # a (value, index) list as long as the row in shared
-                      # memory, under the 227 KB cap
+SMEM_SAMPLES = 28_000  # rows up to this long keep the (key, index) list in
+                       # shared memory, under the 227 KB cap (csrc:
+                       # kSmemSamples)
 
 LAUNCHES = 0
 
@@ -53,13 +59,14 @@ def suppress_peaks(scores: torch.Tensor, distance: int, rounds: int
     if scores.dtype != torch.float32 or not scores.is_contiguous():
         raise TypeError("peaks kernel takes a contiguous float32 tensor")
     b, n = scores.shape
-    if n > MAX_SAMPLES:
-        raise ValueError(f"{n} samples exceed the kernel's shared memory")
     vals = torch.empty(b, rounds, dtype=torch.float32, device=scores.device)
     kept = torch.empty(b, rounds, dtype=torch.bool, device=scores.device)
+    scratch = (torch.empty(b, 2 * n, dtype=torch.int32, device=scores.device)
+               if n > SMEM_SAMPLES else None)
     stream = torch.cuda.current_stream(scores.device).cuda_stream
     rc = _build.lib().suppress_peaks_launch(
-        scores.data_ptr(), vals.data_ptr(), kept.data_ptr(), b, n,
+        scores.data_ptr(), vals.data_ptr(), kept.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), b, n,
         int(distance), int(rounds), stream)
     _build.check(rc, "suppress_peaks_launch")
     LAUNCHES += 1

@@ -1,20 +1,23 @@
-"""Kernels B, B'' and C of this checkout on the card: their times on two
-timers, and their outputs kept for comparing two checkouts bit for bit.
+"""Kernels B, B', B'', C and D of this checkout on the card: their times on
+two timers, and their outputs kept for comparing two checkouts bit for bit.
 
     python -m tpu_breath_torch.utils.kernel_times --out T.json [--save O.pt]
+        [--kernels D "B'"]
     python -m tpu_breath_torch.utils.kernel_times --compare O1.pt O2.pt
 
 The inputs are chip_smoke.py's kernel inputs (this module builds them for
 both): the golden wavs, silence, an impulse, a quantized clip, then seeded
 noise, at B = 8 and 128; and kernel C's dense worst case, a candidate every
-other sample. Each kernel and its plain version is timed by CUDA events
-over 20 back-to-back calls after 3 warm-ups, unprimed (where the host
-queues a call more slowly than the card runs it, the host sets the pace)
-and primed (a spin kernel first holds the stream, so the card runs the
-calls back to back: the card's time alone). Copied into the package of an
-earlier checkout, it times that checkout's kernels by the same code: to
-compare two checkouts, run both in one call, alternating. --compare says,
-for each kernel and batch, whether two saved outputs are bit-equal.
+other sample; kernel D (on no path) takes the clips themselves, at the
+shapes of its function (cqt_args). Each kernel and its plain version is
+timed by CUDA events over 20 back-to-back calls after 3 warm-ups, unprimed
+(where the host queues a call more slowly than the card runs it, the host
+sets the pace) and primed (a spin kernel first holds the stream, so the
+card runs the calls back to back: the card's time alone). Copied into the
+package of an earlier checkout, it times that checkout's kernels by the
+same code: to compare two checkouts, run both in one call, alternating.
+--compare says, for each kernel and batch, whether two saved outputs are
+bit-equal.
 """
 from __future__ import annotations
 
@@ -136,9 +139,17 @@ def dense_scores(b: int, seed: int) -> torch.Tensor:
     return torch.from_numpy(s).cuda()
 
 
+def cqt_args() -> tuple:
+    """Kernel D's arguments after y: sr, hop, fmin (C1), bins, bins per
+    octave: the JAX package's test of its Pallas kernel."""
+    from tpu_breath_torch.config import DEFAULT_FEATURES as SPEC
+    return (SR, SPEC.hop_length, SPEC.cqt_fmin, 252, 36)
+
+
 def calls(x: dict, dense: torch.Tensor) -> dict:
     """kernel -> (kernel call, plain call) on inputs x and dense."""
-    from tpu_breath_torch.ops.cuda import (epilogue_kernel as ek,
+    from tpu_breath_torch.ops.cuda import (cqt_kernel as ck,
+                                           epilogue_kernel as ek,
                                            gammatone_kernel as gk,
                                            peaks_kernel as pk)
 
@@ -147,6 +158,8 @@ def calls(x: dict, dense: torch.Tensor) -> dict:
     return {
         "B": tuple(lambda f=f: f(x["mag"], x["fb"])
                    for f in (ek.fused_epilogue, ek.fused_epilogue_plain)),
+        "B'": tuple(lambda f=f: f(x["mag"], x["fb"], plain=True)
+                    for f in (ek.fused_epilogue, ek.fused_epilogue_plain)),
         "B''": tuple(lambda f=f: f(x["frames"], x["basis"], x["fb"])
                      for f in (gk.fused_gammatone,
                                gk.fused_gammatone_plain)),
@@ -155,17 +168,22 @@ def calls(x: dict, dense: torch.Tensor) -> dict:
         "C dense": tuple(lambda f=f: f(dense, d, rounds)
                          for f in (pk.suppress_peaks,
                                    pk.suppress_peaks_plain)),
+        "D": tuple(lambda f=f: f(x["y"], *cqt_args())
+                   for f in (ck.cqt_mag, ck.cqt_mag_plain)),
     }
 
 
-def measure() -> tuple[dict, dict]:
+def measure(kernels=None) -> tuple[dict, dict]:
     """Times {kernel: {B: {ms, plain_ms, primed_ms, plain_primed_ms}}} and
-    outputs {"kernel B=b": tensor or tuple of tensors, on the CPU}."""
+    outputs {"kernel B=b": tensor or tuple of tensors, on the CPU}, of the
+    kernels named (all if None)."""
     times: dict = {}
     outputs = {}
     for b in (8, 128):
         x = kernel_inputs(torch.from_numpy(clip_set(b, seed=b)).cuda())
         for k, (run, plain) in calls(x, dense_scores(b, seed=b)).items():
+            if kernels is not None and k not in kernels:
+                continue
             got = run()
             torch.cuda.synchronize()
             outputs[f"{k} B={b}"] = (tuple(t.cpu() for t in got)
@@ -194,6 +212,9 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--save", help="write the outputs here (torch.save)")
     ap.add_argument("--compare", nargs=2, metavar=("A", "B"),
                     help="two saved outputs: which are bit-equal")
+    ap.add_argument("--kernels", nargs="+", metavar="K",
+                    help="time only these (names as in calls: B, B', B'', "
+                         "C, 'C dense', D)")
     args = ap.parse_args(argv)
     if args.compare:
         a, b = (torch.load(p) for p in args.compare)
@@ -208,7 +229,7 @@ def main(argv: list[str] | None = None) -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"[kernel_times] {ROOT}: {smi}", flush=True)
-    times, outputs = measure()
+    times, outputs = measure(args.kernels)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"root": ROOT, "smi": smi, "times": times}, f, indent=1)
