@@ -1,6 +1,7 @@
-"""Chip smoke test of the PyTorch/CUDA port (tpu_breath_torch) on one GPU.
+"""Chip smoke test of the PyTorch/CUDA port (tpu_breath_torch) on the GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # one card, every phase below
+    python3 chip_smoke.py --cards 4    # data parallelism across 4 cards
 
 Phases (each raises on failure; the script then exits non-zero and prints
 no result line):
@@ -16,7 +17,10 @@ no result line):
      clips both sizes share must be bit-equal; C also on the dense worst
      case (a candidate every other sample) and on rows of 40,000 samples
      (its list then in device memory), exactly; D, on no path (as in the
-     JAX package), at the shapes of its function, beside conv1d;
+     JAX package), at the shapes of its function, beside conv1d; then the
+     kernels past their main-path tiles (check_past_tiles): B, B', B''
+     at larger T, F, G and K, B'' at B = 65,537, A past 28,000 pairs a
+     clip and D at 100,000 samples;
   4. extract_features on the card for the golden wavs, against the golden
      npz and the port's CPU result; with fused_gt (kernel B'') against the
      default path;
@@ -33,6 +37,16 @@ no result line):
      --epochs 6 from the cache and train --fused ... --predict with
      TPU_BREATH_PALLAS_GT=1: equal histories, A/B''/C launched 192/96/96
      times, a submission;
+  mesh. data parallelism (parallel/mesh.py): fit's streaming path on one
+     NCCL rank against the resident path (cached CNN8, batch 512, 2
+     epochs, f32: train accuracy equal, losses within 1e-3) and a warm
+     streamed step under the sync check; then two ranks sharing the card
+     over gloo, started as torchrun starts them: precompute --mesh 2
+     (TPU_BREATH_PALLAS_GT=1) gives phase 6's cache bit for bit, train
+     --mesh 2 cnn8,vgg (6 epochs, augmentation from the 5th) and train
+     --fused --mesh 2 cnn8 (2 epochs, kernel B) end with
+     bit-equal weights on both ranks; A, B'', C and A, B, C launch in each
+     rank; ms per step on the host clock;
   8. profile: precompute --profile (stages, slowest first) and train
      --fused --archs cnn8 --epochs 2 --profile (the top device operations
      of the fused steps, from the trace);
@@ -41,13 +55,22 @@ no result line):
      CNN8 and of VGG at batch 512 (CUDA events), cached and fused
      (features and model apart), epoch wall times and precompute clips/s;
  10. the kernels JSON line, then the last line: {"ok": true, "device": {...}}.
+
+With --cards N (N cards): phases 1 and 2, then the seeded dataset's
+precompute in one process and mesh_runs over N ranks, one a card over
+NCCL: precompute --mesh N bit-equal to it, train --mesh N cnn8,vgg and
+train --fused --mesh N cnn8 with bit-equal weights on every rank; then the
+last line.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -169,8 +192,7 @@ def phase_kernels() -> dict:
     """Kernel vs plain on the card; returns errors and times per kernel."""
     import scipy.signal
     from tpu_breath_torch.ops import dft
-    from tpu_breath_torch.ops.cuda import (epilogue_kernel as ek,
-                                           tuning_kernel as tk)
+    from tpu_breath_torch.ops.cuda import epilogue_kernel as ek
 
     rounds = SR // (SR // 10) + 2
     res = {k: {"err": 0.0}
@@ -184,15 +206,9 @@ def phase_kernels() -> dict:
         # kernel C's worst case: a candidate every other sample
         dense = dense_scores(b, seed=b)
         # kernel -> (kernel call, plain call) at this batch's main-path
-        # shapes (B, B', B'', C, C's worst case and D as
+        # shapes (A, B, B', B'', C, C's worst case and D as
         # utils/kernel_times.py times them)
-        calls = {
-            "A": tuple(lambda f=f: (f(x["p12"], x["m12"], 12),
-                                    f(x["p36"], x["m36"], 36))
-                       for f in (tk.estimate_tuning_index,
-                                 tk.estimate_tuning_index_plain)),
-            **kernel_calls(x, dense),
-        }
+        calls = kernel_calls(x, dense)
         out = {k: (run(), plain()) for k, (run, plain) in calls.items()}
         torch.cuda.synchronize()
         for (got, ref), bpo in zip(zip(*out["A"]), (12, 36)):
@@ -281,7 +297,98 @@ def phase_kernels() -> dict:
         log(f"[kernels] {k}: the rows of the {n_shared} shared clips are "
             f"bit-equal at B = {MICRO} and B = {CHUNK}")
     check_long_rows(40_000)
+    check_past_tiles()
     return res
+
+
+def check_past_tiles() -> None:
+    """The kernels at shapes past their main path's tiles or shared memory,
+    which the JAX functions take: B and B' at T = 65 and 200, F = 300 and
+    G = 80 (in ranges of one block's tiles), B'' at T = 128, K = 1,024
+    (F = 513), K = 520 and G = 80 (in ranges; K padded inside the kernel)
+    and at B = 65,537 (more clips than a grid column), A on clips of 4 s
+    (about 62,000 pairs, past shared memory) and D on rows of 100,000 samples
+    (read from device memory), each against its plain version with the
+    tolerances above, A exactly."""
+    from tpu_breath_torch.ops import chroma, spectral
+    from tpu_breath_torch.ops.cuda import (cqt_kernel as ck,
+                                           epilogue_kernel as ek,
+                                           gammatone_kernel as gk,
+                                           tuning_kernel as tk)
+
+    y = torch.from_numpy(clip_set(MICRO, seed=65)).cuda()
+    errs = []
+    for t, f, g in ((65, 257, 64), (200, 257, 64), (63, 300, 64),
+                    (63, 257, 80)):
+        n_fft, hop = 2 * (f - 1), (SR - 1) // (t - 1)
+        mag = spectral.stft_mag_cr(y, n_fft, hop)[..., :t].contiguous()
+        fb = spectral.device_const(spectral.mel_matrix, SR, n_fft, g,
+                                   device=y.device)
+        for k, plain in (("B", False), ("B'", True)):
+            got = ek.fused_epilogue(mag, fb, plain=plain)
+            with spectral.full_f32():
+                ref = ek.fused_epilogue_plain(mag, fb, plain=plain)
+            err = float((got - ref).abs().max())
+            if not (got.shape == (MICRO, g, t) and err <= TOLS[k]):
+                raise AssertionError(f"kernel {k} at T {t}, F {f}, G {g}: "
+                                     f"{tuple(got.shape)}, err {err}")
+            errs.append(f"{k} T{t} F{f} G{g} {err:.3g}")
+    for t, k, g in ((128, 512, 64), (63, 1024, 64), (63, 520, 64),
+                    (63, 512, 80)):
+        hop = (SR - 1) // (t - 1)
+        frames = spectral.frame_signal(
+            torch.nn.functional.pad(y, (k // 2, k // 2)), k, hop,
+            t).contiguous()
+        basis = spectral.device_const(spectral.framedft_basis, k,
+                                      device=y.device)
+        fb = spectral.device_const(spectral.mel_matrix, SR, k, g,
+                                   device=y.device)
+        got = gk.fused_gammatone(frames, basis, fb)
+        err = float((got - gk.fused_gammatone_plain(frames, basis, fb)
+                     ).abs().max())
+        if not (got.shape == (MICRO, g, t) and err <= TOLS["B''"]):
+            raise AssertionError(f"kernel B'' at T {t}, K {k}, G {g}: "
+                                 f"{tuple(got.shape)}, err {err}")
+        errs.append(f"B'' T{t} K{k} G{g} {err:.3g}")
+    # B'' at B = 65,537: three clips' rows equal their rows alone
+    yp = torch.nn.functional.pad(y[:3], (256, 256))
+    frames = spectral.frame_signal(yp, 512, 256, 63).contiguous()
+    basis = spectral.device_const(spectral.framedft_basis, 512,
+                                  device=y.device)
+    fb = spectral.device_const(spectral.mel_matrix, SR, 512, 64,
+                               device=y.device)
+    rows = [0, 40_000, 65_536]
+    big = torch.zeros(65_537, 63, 512, device="cuda")
+    big[rows] = frames
+    got = gk.fused_gammatone(big, basis, fb)[rows]
+    del big
+    torch.cuda.empty_cache()
+    if not torch.equal(got, gk.fused_gammatone(frames, basis, fb)):
+        raise AssertionError("kernel B'' at B = 65,537: rows differ from "
+                             "the clips alone")
+    # A on 4 s clips: piptrack pairs of |STFT_2048| past shared memory
+    y4 = y.reshape(2, 4 * SR)
+    s2048 = spectral.stft_mag_cr(y4, 2048, 256)[..., ::2]
+    p, m = (v.contiguous() for v in chroma._piptrack_band(s2048, SR, 2048))
+    n = p[0].numel()
+    got, ref = (fn(p, m, 36) for fn in (tk.estimate_tuning_index,
+                                        tk.estimate_tuning_index_plain))
+    if not (n > tk.SMEM_PAIRS and torch.equal(got, ref)):
+        raise AssertionError(f"kernel A at {n} pairs: {got.tolist()} != "
+                             f"{ref.tolist()}")
+    # D on rows of 100,000 samples
+    y100 = torch.cat([y.reshape(1, -1)[:, :100_000]] * 2) * torch.tensor(
+        [[1.0], [0.1]], device="cuda")
+    got = ck.cqt_mag(y100.contiguous(), *cqt_args())
+    ref = ck.cqt_mag_plain(y100, *cqt_args())
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    if not (ck.staged_len(100_000, 256) * 4 > ck.SMEM_LIMIT
+            and rel < TOL_D):
+        raise AssertionError(f"kernel D at 100,000 samples: rel err {rel}")
+    log(f"[kernels] past the main path's tiles: {'; '.join(errs)} (max abs "
+        f"err; tolerances {TOLS}); B'' at B = 65,537 rows bit-equal to the "
+        f"clips alone; A exact at {n} pairs a clip (bpo 36, 4 s clips); D "
+        f"at 100,000 samples max|a-b|/max|b| {rel:.3g} (tol {TOL_D:g})")
 
 
 def check_long_rows(n: int) -> None:
@@ -728,6 +835,323 @@ def phase_fused(tmp: str) -> dict:
     return res
 
 
+# One rank of a data-parallel CLI run (phase_mesh): cli.main(argv) with the
+# launcher's environment; writes {"launches", "step_ms"} (the kernels'
+# launches and each train step's host time, synchronized) and each fit's
+# final state_dict to OUT.
+RANK_CODE = """
+import json, os, sys, time
+import torch
+import chip_smoke
+from tpu_breath_torch import cli
+from tpu_breath_torch.train import loop
+out, argv = sys.argv[1], sys.argv[2:]
+rank = os.environ["RANK"]
+fit, step, step_ms = loop.fit, loop.train_step, []
+def timed_step(*a, **k):
+    t0 = time.perf_counter()
+    r = step(*a, **k)
+    torch.cuda.synchronize()
+    step_ms.append((time.perf_counter() - t0) * 1e3)
+    return r
+def fit_and_keep(model, *a, **k):
+    r = fit(model, *a, **k)
+    torch.save(r.model.state_dict(),
+               os.path.join(out, type(model).__name__ + "_rank" + rank + ".pt"))
+    return r
+loop.fit, loop.train_step = fit_and_keep, timed_step
+chip_smoke.reset_launches()
+cli.main(argv)
+with open(os.path.join(out, "rank" + rank + ".json"), "w") as f:
+    json.dump({"launches": chip_smoke.read_launches(), "step_ms": step_ms}, f)
+"""
+
+
+def free_port() -> int:
+    """A free TCP port on this host, for a process group's rendezvous."""
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def run_ranks(argv: list[str], out: str, env: dict | None = None,
+              world: int = 2) -> list[dict]:
+    """`world` processes of RANK_CODE on this card, started as torchrun
+    starts them (RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE,
+    MASTER_ADDR, MASTER_PORT), each running cli.main(argv); every process
+    is waited for. Returns each rank's {"launches", "step_ms", "log"};
+    raises if a rank fails."""
+    os.makedirs(out, exist_ok=True)
+    port = free_port()
+    procs = []
+    for rank in range(world):
+        penv = {**os.environ, **(env or {}), "RANK": str(rank),
+                "WORLD_SIZE": str(world), "LOCAL_RANK": str(rank),
+                "LOCAL_WORLD_SIZE": str(world), "MASTER_ADDR": "127.0.0.1",
+                "MASTER_PORT": str(port), "PYTHONPATH": ROOT}
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", RANK_CODE, out, *argv], env=penv,
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, text) in enumerate(zip(procs, logs)):
+        for line in text.splitlines():
+            if rank == 0 or p.returncode:
+                log(f"[mesh]   r{rank} {line}")
+        if p.returncode:
+            raise AssertionError(f"rank {rank} of {argv[0]} --mesh exited "
+                                 f"{p.returncode}")
+    out_json = []
+    for rank, text in enumerate(logs):
+        with open(os.path.join(out, f"rank{rank}.json")) as f:
+            out_json.append({**json.load(f), "log": text})
+    return out_json
+
+
+def same_weights(out: str, names: list[str], world: int = 2) -> None:
+    """Every rank's final weights of each model in names are bit-equal."""
+    for name in names:
+        sds = [torch.load(os.path.join(out, f"{name}_rank{r}.pt"),
+                          map_location="cpu") for r in range(world)]
+        for r, sd in enumerate(sds[1:], 1):
+            bad = [k for k, v in sds[0].items() if not torch.equal(v, sd[k])]
+            if bad:
+                raise AssertionError(f"{name}: rank {r}'s weights differ "
+                                     f"from rank 0's: {bad[:5]}")
+
+
+def phase_mesh(tmp: str, smi: str) -> dict:
+    """Data parallelism (parallel/mesh.py) on this card. (i) The streaming
+    path of fit(mesh=...) on one NCCL rank, cached CNN8, batch 512, 2
+    epochs, f32, deterministic cuDNN: its history matches the resident
+    path's (train accuracy equal, losses within 1e-3), and a warm streamed
+    step raises nothing under torch.cuda.set_sync_debug_mode("error").
+    (ii) Two ranks sharing the card over gloo, started as torchrun would:
+    precompute --mesh 2 with TPU_BREATH_PALLAS_GT=1 gives phase 6's cache
+    bit for bit; train --mesh 2 cnn8,vgg (cached, 6 epochs: augmentation
+    and its partner gather from epoch 5) and train --fused --mesh 2 cnn8
+    (2 epochs, kernel B) end with bit-equal weights on both ranks and finite
+    histories; A, B'', C (precompute) and A, B, C (fused) launch in each
+    rank (mesh_runs). Returns the launches summed over the ranks."""
+    import torch.distributed as dist
+
+    from tpu_breath_torch import augment, cli
+    from tpu_breath_torch.config import CNN8_TRAIN, DEFAULT_FEATURES, Paths
+    from tpu_breath_torch.data import loader
+    from tpu_breath_torch.models import layers, registry
+    from tpu_breath_torch.parallel import mesh as mesh_lib
+    from tpu_breath_torch.train import loop
+
+    root = os.path.join(tmp, "input")
+    res = {}
+    # (i) one NCCL rank, in this process
+    os.environ.update({"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                       "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
+                       "MASTER_PORT": str(free_port())})
+    try:
+        mesh = mesh_lib.make_mesh("cuda")
+        log(f"[mesh] (i) {mesh_lib.describe(mesh)}")
+        if mesh.backend != "nccl":
+            raise AssertionError(f"one rank a card should be nccl: {mesh}")
+        tr, va, _, y_tr, y_va = cli._prepare_splits(
+            Paths(root, tmp), DEFAULT_FEATURES, torch.device("cuda"))
+        cfg = dataclasses.replace(CNN8_TRAIN, num_epochs=2)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.allow_tf32 = False
+        hist, step_ms = {}, []
+        try:
+            for name, m in (("resident", None), ("streaming", mesh)):
+                model = registry.build("cnn8", 36, seed=cfg.seed, bf16=False)
+                t0 = time.perf_counter()
+                hist[name] = loop.fit(
+                    model, (tr.features, tr.scalars), (va.features,
+                                                       va.scalars),
+                    y_tr, y_va, cfg, device="cuda", mesh=m,
+                    log_fn=lambda msg: None).history
+                torch.cuda.synchronize()
+                log(f"[mesh] (i) {name} fit, 2 epochs: "
+                    f"{time.perf_counter() - t0:.2f} s; train loss "
+                    f"{[r['train_loss'] for r in hist[name]]}, acc "
+                    f"{[r['train_acc'] for r in hist[name]]}")
+            # a warm streamed step under the sync check
+            model = registry.build("cnn8", 36, seed=cfg.seed,
+                                   bf16=False).cuda()
+            opt = loop.make_optimizer(model, cfg)
+            host = [np.ascontiguousarray(tr.features, np.float32),
+                    np.ascontiguousarray(tr.scalars, np.float32),
+                    np.asarray(y_tr, np.float32)]
+            stream = iter(loader.stream_batches(
+                host, cfg.batch_size, np.random.default_rng(0),
+                device=mesh.device))
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            layers.set_mesh(model, mesh)
+
+            def streamed_step():
+                f, sc, y = next(stream)
+                d = augment.draw(gen, cfg.batch_size, 128, 63,
+                                 cfg.cutmix_alpha, cfg.mixup_alpha, "cuda")
+                return loop.train_step(model, opt, 1e-4,
+                                       augment.Batch(f, sc, y), cfg, d, mesh)
+
+            streamed_step()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                streamed_step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            layers.set_mesh(model, None)
+            stream = iter(loader.stream_batches(
+                host, cfg.batch_size, np.random.default_rng(1),
+                device=mesh.device))
+            layers.set_mesh(model, mesh)
+            for _ in range(2):
+                t0 = time.perf_counter()
+                streamed_step()
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            layers.set_mesh(model, None)
+        finally:
+            torch.backends.cudnn.deterministic = False
+            torch.backends.cudnn.allow_tf32 = True
+        dl = max(abs(a[k] - b[k]) for a, b in zip(hist["resident"],
+                                                   hist["streaming"])
+                 for k in ("train_loss", "val_loss"))
+        same_acc = all(a["train_acc"] == b["train_acc"]
+                       for a, b in zip(hist["resident"], hist["streaming"]))
+        log(f"[mesh] (i) streaming vs resident history: max |loss diff| "
+            f"{dl:.3g} (bound 1e-3), train acc equal {same_acc}; a warm "
+            f"streamed step raised nothing under sync debug mode 'error'; "
+            f"streamed step (1 NCCL rank, CNN8 f32, batch 512, host clock) "
+            f"{', '.join(f'{m:.2f}' for m in step_ms)} ms ({smi})")
+        if not (len(hist["streaming"]) == 2 and dl < 1e-3 and same_acc):
+            raise AssertionError("streaming fit differs from the resident")
+        res["stream_ms"] = step_ms
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                  "MASTER_ADDR", "MASTER_PORT"):
+            os.environ.pop(k, None)
+
+    # (ii) two ranks sharing the card over gloo
+    res.update(mesh_runs(tmp, root, 2, smi))
+    return res
+
+
+def mesh_runs(tmp: str, root: str, world: int, smi: str) -> dict:
+    """`world` ranks started as torchrun starts them, each on
+    cuda:(rank % cards): precompute --mesh with TPU_BREATH_PALLAS_GT=1
+    against the single process's cache under root (bit for bit), train
+    --mesh cnn8,vgg from that cache and train --fused --mesh cnn8 (bit-equal
+    weights on every rank, finite histories, A/B''/C and A/B/C launched in
+    every rank). The backend must be the one make_mesh names for this many
+    ranks on this many cards. Returns the launches summed over the ranks
+    and the step times."""
+    import shutil
+
+    from tpu_breath_torch.config import Paths
+    from tpu_breath_torch.data import dataset as ds
+
+    cards = torch.cuda.device_count()
+    backend = "nccl" if world <= cards else "gloo"
+    where = (f"{world} ranks on {min(world, cards)} card(s) over {backend}")
+    # the inputs under a second root, so that its cache is the mesh's own
+    root2 = os.path.join(tmp, f"input_mesh{world}")
+    os.makedirs(root2)
+    for name in ("train", "test"):
+        os.symlink(os.path.join(root, name), os.path.join(root2, name))
+    for name in ("train.csv", "test.csv"):
+        shutil.copy(os.path.join(root, name), root2)
+    common = ["--root", root2, "--device", "cuda", "--mesh", str(world)]
+    res = {}
+    out = os.path.join(tmp, f"mesh{world}_pre")
+    ranks = run_ranks(["precompute", *common, "--out-root", out], out,
+                      env={"TPU_BREATH_PALLAS_GT": "1"}, world=world)
+    line = f"data-parallel mesh: {world} ranks, {backend}"
+    if line not in ranks[0]["log"]:
+        raise AssertionError(f"rank 0 did not print {line!r}")
+    for r, d in enumerate(ranks):
+        if min(d["launches"][k] for k in ("A", "B''", "C")) <= 0:
+            raise AssertionError(f"precompute rank {r}: {d['launches']}")
+    res["pre_launches"] = [d["launches"] for d in ranks]
+    one = ds.FeatureStore.load_cache(Paths(root, tmp).feature_cache)
+    two = ds.FeatureStore.load_cache(Paths(root2, tmp).feature_cache)
+    if not (list(one.ids) == list(two.ids)
+            and _nan_equal(torch.from_numpy(np.array(one.features)),
+                           torch.from_numpy(np.array(two.features)))
+            and _nan_equal(torch.from_numpy(np.array(one.scalars)),
+                           torch.from_numpy(np.array(two.scalars)))):
+        raise AssertionError(f"precompute --mesh {world}'s cache differs "
+                             "from the single process's")
+    log(f"[mesh] precompute --mesh {world} (TPU_BREATH_PALLAS_GT=1), "
+        f"{where}: cache of {len(two.ids)} clips bit-equal to the single "
+        f"process's; launches by rank {res['pre_launches']}")
+    # the cached run takes 6 epochs, so that augmentation (from epoch 5 of
+    # CNN8 and 6 of VGG) and its partner all-gather run too
+    runs = (("train", ["--archs", "cnn8,vgg"], ["CNN8", "VGG"], 6),
+            ("fused", ["--fused", "--archs", "cnn8"], ["CNN8"], 2))
+    for name, extra, models, epochs in runs:
+        out = os.path.join(tmp, f"mesh{world}_{name}")
+        t0 = time.perf_counter()
+        ranks = run_ranks(["train", *extra, "--epochs", str(epochs),
+                           *common, "--out-root", out], out, world=world)
+        wall = time.perf_counter() - t0
+        same_weights(out, models, world)
+        for arch in [m.lower() for m in models]:
+            h = read_history(out, arch)
+            if len(h) != epochs or not all(np.isfinite(
+                    [r["train_loss"], r["val_loss"]]).all() for r in h):
+                raise AssertionError(f"{name} {arch} history: {h}")
+        need = ("A", "B", "C") if name == "fused" else ()
+        for r, d in enumerate(ranks):
+            if need and min(d["launches"][k] for k in need) <= 0:
+                raise AssertionError(f"{name} rank {r}: {d['launches']}")
+        ms = [d["step_ms"] for d in ranks]
+        res[f"{name}_ms"] = ms
+        res[f"{name}_launches"] = [d["launches"] for d in ranks]
+        log(f"[mesh] train{' --fused' if name == 'fused' else ''} --mesh "
+            f"{world} {','.join(m.lower() for m in models)}, {epochs} "
+            f"epochs, global batch 512 ({512 // world} a rank), {where}: "
+            f"{wall:.2f} s with start-up; every rank's final weights "
+            f"bit-equal; histories finite; step ms (host clock, each "
+            f"synchronized) by rank "
+            f"{[[round(v, 2) for v in m] for m in ms]} ({smi}); launches "
+            f"by rank {res[f'{name}_launches']}")
+    launches = {k: 0 for k in read_launches()}
+    for by_rank in (res["pre_launches"], res["fused_launches"],
+                    res["train_launches"]):
+        for d in by_rank:
+            for k, v in d.items():
+                launches[k] += v
+    res["launches"] = launches
+    return res
+
+
+def phase_cards(tmp: str, smi: str, cards: int) -> None:
+    """--cards N: data parallelism with one rank a card over NCCL, on the
+    seeded synthetic dataset: the single process's precompute (kernel B'')
+    on card 0, then mesh_runs over N ranks."""
+    root = os.path.join(tmp, "input")
+    make_dataset(root)
+    os.environ["TPU_BREATH_PALLAS_GT"] = "1"
+    try:
+        run_cli(["precompute", "--root", root, "--out-root", tmp,
+                 "--device", "cuda"])
+    finally:
+        del os.environ["TPU_BREATH_PALLAS_GT"]
+    mesh_runs(tmp, root, cards, smi)
+
+
 def phase_profile(tmp: str) -> None:
     """precompute --profile and train --fused --profile through cli.main on
     cuda; the stages and the top device operations of the fused steps."""
@@ -894,15 +1318,33 @@ def phase_times(serve: dict, e2e: dict, fused: dict) -> None:
         f"{e2e['train_s']:.2f} s")
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--cards", type=int, default=0, metavar="N",
+                    help="only the environment, the build and data "
+                         "parallelism across N cards, one rank a card over "
+                         "NCCL (mesh_runs); needs N cards")
+    args = ap.parse_args(argv)
     env = phase_env()
     phase_build()
+    if args.cards:
+        if torch.cuda.device_count() < args.cards:
+            raise SystemExit(f"chip_smoke: --cards {args.cards} but "
+                             f"{torch.cuda.device_count()} card(s)")
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_cards(tmp, env["smi"], args.cards)
+        print(env["smi"])
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     ker = phase_kernels()
     phase_features()
     with tempfile.TemporaryDirectory() as tmp:
         serve = phase_serve(tmp)
         e2e = phase_e2e(tmp)
         fused = phase_fused(tmp)
+        mesh = phase_mesh(tmp, env["smi"])
         phase_profile(tmp)
         phase_times(serve, e2e, fused)
     src = "tpu_breath_torch/csrc"
@@ -922,7 +1364,7 @@ def main() -> int:
     # precompute chunk (B = 128). No single PyTorch call computes A-C;
     # D's library time is conv1d's (its complex response, no |.|)
     paths = {"serve": serve["launches"], "e2e": e2e["launches"],
-             "fused": fused["launches"]}
+             "fused": fused["launches"], "mesh": mesh["launches"]}
     kernels = [{"name": name, "route": "cuda", "source": f"{src}/{f}",
                 "replaces": f"{pallas}/{rep}",
                 "launches": sum(p[k] for p in paths.values()),

@@ -197,7 +197,8 @@ def test_help_names_what_is_not_ported(capsys):
     with pytest.raises(SystemExit):
         cli.main(["train", "--help"])
     out = " ".join(capsys.readouterr().out.split())
-    assert "--mesh of the JAX package's CLI is not ported yet" in out
-    assert "--scan and --epoch-scan are not ported" in out
+    assert "--mesh auto|off|N" in out and "data-parallel mesh" in out
+    assert "--scan and --epoch-scan of the JAX package's CLI are not " \
+           "ported" in out
     assert "--fused" in out and "--profile" in out
     assert "--device" in out

@@ -74,14 +74,15 @@ def _adversarial_pairs(n: int, seed: int) -> tuple[np.ndarray, ...]:
     return p.astype(np.float32), m.astype(np.float32)
 
 
-@pytest.mark.parametrize("n", [7875, 15808, 28_000])
+@pytest.mark.parametrize("n", [7875, 15808, 28_000, 28_001, 60_000])
 def test_tuning_kernel_exact_on_adversarial_pairs(clips, n):
     """Kernel A equals its plain version exactly on pair sets built to
-    break an order statistic, at bpo 12's and 36's pair counts and at
-    MAX_PAIRS; no valid pitch gives 50."""
+    break an order statistic, at bpo 12's and 36's pair counts, at
+    SMEM_PAIRS (the last clip length whose list stays in shared memory)
+    and past it (the list in device memory); no valid pitch gives 50."""
     from tpu_breath_torch.ops.cuda import tuning_kernel as tk
 
-    assert n <= tk.MAX_PAIRS
+    assert (n <= tk.SMEM_PAIRS) == (n <= 28_000)
     p, m = (torch.from_numpy(a).cuda() for a in _adversarial_pairs(n, n))
     for bpo in (12, 36):
         got = tk.estimate_tuning_index(p, m, bpo)
@@ -457,21 +458,126 @@ def test_wrapper_call_is_one_kernel_launch(clips, kernel):
     assert count() == before + 1
 
 
+def _stft_inputs(y: torch.Tensor, t: int, f: int, g: int):
+    """|S| [B, f, t] of clips y (n_fft 2 (f - 1), the hop that gives t
+    frames) and a mel filterbank [g, f], as the feature graph builds them."""
+    from tpu_breath_torch.ops import spectral
+
+    n_fft, hop = 2 * (f - 1), (y.shape[-1] - 1) // (t - 1)
+    mag = spectral.stft_mag_cr(y, n_fft, hop)[..., :t].contiguous()
+    fb = spectral.device_const(spectral.mel_matrix, 16000, n_fft, g,
+                               device=y.device)
+    return mag, fb
+
+
 @pytest.mark.parametrize("plain", [False, True])
-def test_epilogue_kernels_refuse_a_clip_past_their_tiles(clips, plain):
-    """Kernels B and B' hold a clip's outputs in one block's tiles: on the
-    card they take T <= 64 frames, F <= 264 and G <= 64, and a clip of 65
-    frames raises ValueError before any launch (the JAX kernel takes any
-    T)."""
+@pytest.mark.parametrize("t, f, g", [(65, 257, 64), (200, 257, 64),
+                                     (63, 300, 64), (63, 257, 80),
+                                     (200, 300, 80)])
+def test_epilogue_kernels_take_a_clip_past_their_tiles(clips, plain, t, f,
+                                                       g):
+    """Kernels B and B' hold a clip of up to 64 frames, 264 frequencies and
+    64 bands in one block's tiles; past that they walk it in ranges of those
+    tiles (the JAX kernel takes any shape): at T = 65 and 200, F = 300 and
+    G = 80, one launch and within 1e-5 (B) or 5e-5 (B') of the plain
+    version, the quiet and silent clips included."""
+    from tpu_breath_torch.ops import spectral
     from tpu_breath_torch.ops.cuda import epilogue_kernel as ek
 
-    mag = torch.rand(2, 257, 65, device="cuda")
-    fb = torch.rand(64, 257, device="cuda")
+    y = clips  # golden wavs, loud and quiet noise, impulse, silence, ...
+    mag, fb = _stft_inputs(y, t, f, g)
+    assert mag.shape[1:] == (f, t)
     before = (ek.LAUNCHES, ek.LAUNCHES_F32)
-    with pytest.raises(ValueError, match="T 65"):
-        ek.fused_epilogue(mag, fb, plain=plain)
-    assert (ek.LAUNCHES, ek.LAUNCHES_F32) == before
-    ek.fused_epilogue(mag[..., :64].contiguous(), fb, plain=plain)
+    got = ek.fused_epilogue(mag, fb, plain=plain)
+    torch.cuda.synchronize()
+    assert (ek.LAUNCHES - before[0], ek.LAUNCHES_F32 - before[1]) == (
+        (0, 1) if plain else (1, 0))
+    with spectral.full_f32():
+        ref = ek.fused_epilogue_plain(mag, fb, plain=plain)
+    assert got.shape == (y.shape[0], g, t)
+    assert float((got - ref).abs().max()) <= (5e-5 if plain else 1e-5)
+
+
+@pytest.mark.parametrize("t, k, g", [(128, 512, 64), (63, 1024, 64),
+                                     (63, 520, 64), (63, 512, 80),
+                                     (128, 1024, 80)])
+def test_gammatone_kernel_takes_a_clip_past_its_tiles(clips, t, k, g):
+    """Kernel B'' past one cluster's tiles (T > 64, F = K / 2 + 1 > 264,
+    G > 64, or K not a multiple of 32: K is padded inside the kernel) runs
+    in ranges: within 1e-5 of its plain version, one launch."""
+    from tpu_breath_torch.ops import spectral
+    from tpu_breath_torch.ops.cuda import gammatone_kernel as gk
+
+    y = _batch(clips, 8, seed=t + k + g)
+    hop = (y.shape[-1] - 1) // (t - 1)
+    yp = torch.nn.functional.pad(y, (k // 2, k // 2))
+    frames = spectral.frame_signal(yp, k, hop, t).contiguous()
+    basis = spectral.device_const(spectral.framedft_basis, k,
+                                  device=y.device)
+    fb = spectral.device_const(spectral.mel_matrix, 16000, k, g,
+                               device=y.device)
+    before = gk.LAUNCHES
+    got = gk.fused_gammatone(frames, basis, fb)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES == before + 1
+    ref = gk.fused_gammatone_plain(frames, basis, fb)
+    assert got.shape == (8, g, t)
+    assert float((got - ref).abs().max()) <= 1e-5
+
+
+def test_gammatone_kernel_copies_unaligned_frames(clips):
+    """Frames that do not start on a 16-byte boundary give the bits of the
+    same frames aligned (the wrapper copies them once)."""
+    from tpu_breath_torch.ops.cuda import gammatone_kernel as gk
+
+    frames, basis, fb = _gammatone_inputs(clips)
+    store = torch.empty(frames.numel() + 1, device="cuda")
+    shifted = store[1:].view(frames.shape)
+    shifted.copy_(frames)
+    assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+    assert torch.equal(gk.fused_gammatone(shifted, basis, fb),
+                       gk.fused_gammatone(frames, basis, fb))
+
+
+def test_gammatone_kernel_takes_more_clips_than_a_grid_column(clips):
+    """Kernel B'' at B = 65,537, past the 65,535 blocks of a grid's y
+    dimension (the clip is on x): the rows of the clips at 0, 40,000 and
+    65,536 are bit-equal to the kernel's rows of those clips alone, and a
+    silent clip's row is zero."""
+    from tpu_breath_torch.ops.cuda import gammatone_kernel as gk
+
+    frames, basis, fb = _gammatone_inputs(clips[:3])
+    rows = (0, 40_000, 65_536)
+    big = torch.zeros(65_537, *frames.shape[1:], device="cuda")
+    big[list(rows)] = frames
+    got = gk.fused_gammatone(big, basis, fb)
+    one = gk.fused_gammatone(frames, basis, fb)
+    for c, row in enumerate(rows):
+        assert torch.equal(got[row], one[c]), row
+    assert not got[1].any()
+    del big, got
+    torch.cuda.empty_cache()
+
+
+def test_cqt_kernel_takes_a_row_past_its_shared_memory(clips):
+    """Kernel D on rows of 100,000 samples, whose staged copy does not fit
+    shared memory (read from device memory instead): within 1e-5 of the
+    max of its plain version, one launch."""
+    from tpu_breath_torch.config import DEFAULT_FEATURES as SPEC
+    from tpu_breath_torch.ops.cuda import cqt_kernel as ck
+
+    g = torch.Generator(device="cuda").manual_seed(100)
+    y = 0.05 * torch.randn(2, 100_000, generator=g, device="cuda")
+    y[0, :16000] = clips[0]
+    args = (16000, 256, SPEC.cqt_fmin, 252, 36)
+    assert ck.staged_len(100_000, 256) * 4 > ck.SMEM_LIMIT
+    before = ck.LAUNCHES
+    got = ck.cqt_mag(y, *args)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == before + 1
+    ref = ck.cqt_mag_plain(y, *args)
+    assert got.shape == ref.shape == (2, 252, 1 + 100_000 // 256)
+    assert float((got - ref).abs().max() / ref.abs().max()) < 1e-5
 
 
 def test_features_gpu_match_cpu(clips):

@@ -38,7 +38,8 @@ MODULES = {
     "ops.cuda.epilogue_kernel",
     "ops.cuda.gammatone_kernel", "ops.cuda.peaks_kernel",
     "ops.cuda.tuning_kernel", "ops.dft", "ops.lpc", "ops.peaks",
-    "ops.rhythm", "ops.scalars", "ops.select", "ops.spectral", "train",
+    "ops.rhythm", "ops.scalars", "ops.select", "ops.spectral",
+    "parallel", "parallel.mesh", "data.loader", "train",
     "train.checkpoint", "train.loop", "train.metrics", "train.schedule",
     "utils", "utils.gammatone_breakdown", "utils.kernel_times",
     "utils.path_times", "utils.profiling",

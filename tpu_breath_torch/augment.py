@@ -11,7 +11,10 @@ The semantics are the JAX package's:
 - per step r ~ U[0, 1) picks CutMix (r < cutmix_prob), MixUp
   (r < cutmix_prob + mixup_prob) or nothing; use_aug gates it all.
 The branch is selected on the device (torch.where), so a step never waits
-for the host.
+for the host. Under a data-parallel mesh the draws are of the global batch
+(every rank draws them from the same seeded generator), each rank mixes its
+own rows with partner rows taken from the global batch (local_rows,
+apply_augmentation's `partners`).
 """
 from __future__ import annotations
 
@@ -74,9 +77,19 @@ def draw(g: torch.Generator, b: int, h: int, w: int, cutmix_alpha: float,
     return AugDraw(r, cut, mix)
 
 
-def cutmix(batch: Batch, d: CutMixDraw) -> Batch:
-    """Box from the permuted batch pasted into each clip; lambda recomputed
-    from the integer box (tpu_breath/augment.py:28-50)."""
+def local_rows(d: AugDraw, rows: slice) -> AugDraw:
+    """The draws of a global batch for its rows `rows`: the partner of
+    local row i is global row perm[rows][i]."""
+    return AugDraw(d.r, d.cutmix._replace(perm=d.cutmix.perm[rows]),
+                   d.mixup._replace(perm=d.mixup.perm[rows]))
+
+
+def cutmix(batch: Batch, d: CutMixDraw, partners: Batch | None = None
+           ) -> Batch:
+    """Box from the permuted batch (rows d.perm of partners, by default
+    batch itself) pasted into each clip; lambda recomputed from the integer
+    box (tpu_breath/augment.py:28-50)."""
+    partners = batch if partners is None else partners
     _, _, h, w = batch.features.shape
     cut_rat = torch.sqrt(1.0 - d.lam)
     cut_w = (w * cut_rat).to(torch.int64)
@@ -89,26 +102,33 @@ def cutmix(batch: Batch, d: CutMixDraw) -> Batch:
     row = torch.arange(h, device=dev)[:, None]
     col = torch.arange(w, device=dev)[None, :]
     box = (row >= bby1) & (row < bby2) & (col >= bbx1) & (col < bbx2)
-    mixed = torch.where(box, batch.features[d.perm], batch.features)
+    mixed = torch.where(box, partners.features[d.perm], batch.features)
     lam_adj = 1.0 - ((bbx2 - bbx1) * (bby2 - bby1)).float() / (w * h)
-    labels = lam_adj * batch.labels + (1.0 - lam_adj) * batch.labels[d.perm]
+    labels = (lam_adj * batch.labels
+              + (1.0 - lam_adj) * partners.labels[d.perm])
     return Batch(mixed, batch.scalars, labels)
 
 
-def mixup(batch: Batch, d: MixUpDraw) -> Batch:
-    """Convex combination of features, scalars and labels."""
+def mixup(batch: Batch, d: MixUpDraw, partners: Batch | None = None
+          ) -> Batch:
+    """Convex combination of features, scalars and labels with rows d.perm
+    of partners (by default batch itself)."""
+    partners = batch if partners is None else partners
     lam, p = d.lam, d.perm
-    return Batch(lam * batch.features + (1 - lam) * batch.features[p],
-                 lam * batch.scalars + (1 - lam) * batch.scalars[p],
-                 lam * batch.labels + (1 - lam) * batch.labels[p])
+    return Batch(lam * batch.features + (1 - lam) * partners.features[p],
+                 lam * batch.scalars + (1 - lam) * partners.scalars[p],
+                 lam * batch.labels + (1 - lam) * partners.labels[p])
 
 
 def apply_augmentation(batch: Batch, d: AugDraw, cutmix_prob: float,
-                       mixup_prob: float) -> Batch:
+                       mixup_prob: float, partners: Batch | None = None
+                       ) -> Batch:
     """CutMix if r < cutmix_prob, else MixUp if r < cutmix_prob +
-    mixup_prob, else the batch unchanged. (The use_aug gate is the
-    caller's: a gated-off step does not draw or call this.)"""
-    cut, mix = cutmix(batch, d.cutmix), mixup(batch, d.mixup)
+    mixup_prob, else the batch unchanged; the perms index partners (by
+    default batch itself). (The use_aug gate is the caller's: a gated-off
+    step does not draw or call this.)"""
+    cut = cutmix(batch, d.cutmix, partners)
+    mix = mixup(batch, d.mixup, partners)
     is_cut = d.r < cutmix_prob
     is_mix = ~is_cut & (d.r < cutmix_prob + mixup_prob)
     return Batch(*(torch.where(is_cut, c, torch.where(is_mix, m, o))

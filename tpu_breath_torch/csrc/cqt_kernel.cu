@@ -43,7 +43,11 @@
 // - Each block stages its clip's samples once in shared memory with
 //   kFrames - 1 hops of zeros on each side (23,712 floats at hop 256,
 //   95 KB), which every item of the clip reads; the padding of ypad beyond
-//   that is never read.
+//   that is never read. A row too long for shared memory (past ~50,000
+//   samples at hop 256; the main path's clips are 16,000) takes a second
+//   instantiation (kGlobal, chosen on the host, the hop at run time), which
+//   reads the same staged row from device memory, padded by the wrapper:
+//   the main path keeps its code.
 // - The lanes' partial sums are reduced in float64 by a butterfly that
 //   halves the values a lane holds at each of its 5 steps (xor 16, 8, 4, 2,
 //   1), so a lane ends with the (re, im) sums of 1 or 2 outputs; each
@@ -194,31 +198,38 @@ __device__ __forceinline__ void item(const float* sig,
 // frames), the item's first sample in the staged row (for frame t0, lane
 // 0), its first sample in the packed bank, steps. The staged row (dynamic
 // shared memory): y[b] at [pad, pad + n), zeros in [0, pad) and
-// [pad + n, sig_len).
-template <int kHop>
+// [pad + n, sig_len). kGlobal: a row too long for shared memory; y is then
+// the rows already staged so in device memory ([B, sig_len], the wrapper
+// pads them), which the items read through L1 and L2.
+template <int kHop, bool kGlobal>
 __global__ void __launch_bounds__(kThreads, 1)
-cqt_kernel(const float* __restrict__ y,        // [B, n]
+cqt_kernel(const float* __restrict__ y,        // [B, n] or [B, sig_len]
            const float4* __restrict__ bank,    // packed, kVec float4 a sample
            const int* __restrict__ table,
            float* __restrict__ out,            // [B, n_bins, n_frames]
            int n, int pad, int sig_len, int hop, int n_bins, int n_frames) {
-  extern __shared__ __align__(16) float s[];
+  extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.x;
-  const float* src = y + static_cast<size_t>(b) * n;
-  const bool vec = ((n | pad) & 3) == 0 &&
-                   (reinterpret_cast<size_t>(y) & 15) == 0;
-  for (int i = 4 * threadIdx.x; i < sig_len; i += 4 * kThreads) {
-    const int j = i - pad;
-    if (vec && j >= 0 && j + 3 < n) {
-      *reinterpret_cast<float4*>(s + i) =
-          __ldg(reinterpret_cast<const float4*>(src + j));
-    } else {
+  const float* s = smem;
+  if constexpr (kGlobal) {
+    s = y + static_cast<size_t>(b) * sig_len;
+  } else {
+    const float* src = y + static_cast<size_t>(b) * n;
+    const bool vec = ((n | pad) & 3) == 0 &&
+                     (reinterpret_cast<size_t>(y) & 15) == 0;
+    for (int i = 4 * threadIdx.x; i < sig_len; i += 4 * kThreads) {
+      const int j = i - pad;
+      if (vec && j >= 0 && j + 3 < n) {
+        *reinterpret_cast<float4*>(smem + i) =
+            __ldg(reinterpret_cast<const float4*>(src + j));
+      } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[i + e] = (j + e >= 0 && j + e < n) ? src[j + e] : 0.0f;
+        for (int e = 0; e < 4; ++e)
+          smem[i + e] = (j + e >= 0 && j + e < n) ? src[j + e] : 0.0f;
+      }
     }
+    __syncthreads();
   }
-  __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int slot = blockIdx.y * kWarps + warp;
@@ -240,17 +251,21 @@ cqt_kernel(const float* __restrict__ y,        // [B, n]
 }
 
 int g_smem[2][smem_once::kMaxDevices];  // one for each instantiation
+                                        // with a staged row
 
-template <int kHop>
+template <int kHop, bool kGlobal>
 cudaError_t launch(const float* y, const float4* bank, const int* table,
                    float* out, int b, int n, int pad, int sig_len, int hop,
                    int n_bins, int n_frames, int shares, cudaStream_t st) {
-  const int smem = sig_len * static_cast<int>(sizeof(float));
-  const cudaError_t err = smem_once::raise(
-      reinterpret_cast<const void*>(cqt_kernel<kHop>), smem,
-      g_smem[kHop > 0]);
-  if (err != cudaSuccess || b == 0) return err;
-  cqt_kernel<kHop><<<dim3(b, shares), kThreads, smem, st>>>(
+  const int smem = kGlobal ? 0 : sig_len * static_cast<int>(sizeof(float));
+  if constexpr (!kGlobal) {
+    const cudaError_t err = smem_once::raise(
+        reinterpret_cast<const void*>(cqt_kernel<kHop, kGlobal>), smem,
+        g_smem[kHop > 0]);
+    if (err != cudaSuccess) return err;
+  }
+  if (b == 0) return cudaSuccess;
+  cqt_kernel<kHop, kGlobal><<<dim3(b, shares), kThreads, smem, st>>>(
       y, bank, table, out, n, pad, sig_len, hop, n_bins, n_frames);
   return cudaGetLastError();
 }
@@ -259,10 +274,13 @@ cudaError_t launch(const float* y, const float4* bank, const int* table,
 
 // table's items must hold the clip's every (bin, frame) exactly once and
 // stay inside the staged row and the packed bank (work_items checks).
+// staged: 0, y [b, n]; 1, y the rows staged in device memory [b, sig_len]
+// (a row too long for shared memory).
 extern "C" int cqt_mag_launch(const float* y, const float* bank,
                               const int* table, float* out, int b, int n,
                               int pad, int sig_len, int hop, int n_bins,
-                              int n_frames, int shares, void* stream) {
+                              int n_frames, int shares, int staged,
+                              void* stream) {
   if (n < 1 || hop < 1 || shares < 1 || (sig_len & 3) != 0 ||
       (reinterpret_cast<size_t>(bank) & 15) != 0 ||
       (reinterpret_cast<size_t>(table) & 15) != 0) {
@@ -273,9 +291,14 @@ extern "C" int cqt_mag_launch(const float* y, const float* bank,
   // the features' hop (256) at compile time, the 16 frames' offsets then
   // immediates: at B = 128 1.14 ms against 1.34 with the hop at run time
   // (the same at B = 8; PERF.md); other hops take the run-time one
+  if (staged) {  // rows past shared memory: the hop at run time
+    return static_cast<int>(launch<0, true>(y, b4, table, out, b, n, pad,
+                                            sig_len, hop, n_bins, n_frames,
+                                            shares, st));
+  }
   return static_cast<int>(
-      hop == 256 ? launch<256>(y, b4, table, out, b, n, pad, sig_len, hop,
-                               n_bins, n_frames, shares, st)
-                 : launch<0>(y, b4, table, out, b, n, pad, sig_len, hop,
-                             n_bins, n_frames, shares, st));
+      hop == 256 ? launch<256, false>(y, b4, table, out, b, n, pad, sig_len,
+                                      hop, n_bins, n_frames, shares, st)
+                 : launch<0, false>(y, b4, table, out, b, n, pad, sig_len,
+                                    hop, n_bins, n_frames, shares, st));
 }

@@ -36,6 +36,15 @@
 // blocks a clip, each half the frames (faster at B = 8, slower at
 // B = 128, where every block stages all of fb).
 //
+// A clip past one block's tiles (T > 64 frames, F > 264 frequencies or
+// G > 64 bands; the main path's clips are 63 x 257 -> 64) takes a second
+// instantiation (kRanges), chosen on the host, so the main path keeps its
+// code: the block walks the clip's outputs in tiles of 64 bands x 64
+// frames, each tile's product summed over staged ranges of 264
+// frequencies, with the log1p values kept in `out` and the z-score's sums
+// carried in tile order; a second pass reads them back for the variance
+// and a third normalises them in place (gt_epilogue.cuh, fb_znorm_ranges).
+//
 // B' is the same kernel with the product on the CUDA cores
 // (fb_znorm_tiles_f32): per clip 2 * G * F * T = 2.1 MFLOP of f32, again
 // operations-bound on paper (67 TFLOP/s) and latency-bound in fact, one
@@ -66,7 +75,10 @@ constexpr int kSmemBytes = (kSFloats + kFbFloats) * 4;
 static_assert(kNTiles % kTilesPerWarp == 0, "a warp's tiles share a row");
 
 // kF32: kernel B' (the product in f32 on the CUDA cores), else B.
-template <bool kF32>
+// kRanges: a clip past one block's tiles (T > kRows, F > kMaxF or
+// G > kBands), in tile ranges (gt_epilogue.cuh, fb_znorm_ranges); else the
+// clip in one set of tiles, staged whole.
+template <bool kF32, bool kRanges>
 __global__ void __launch_bounds__(kThreads, 1)
 epilogue_kernel(const float* __restrict__ mag,  // [B, F, T]
                 const float* __restrict__ fb,   // [G, F]
@@ -77,47 +89,63 @@ epilogue_kernel(const float* __restrict__ mag,  // [B, F, T]
   float* S = smem;               // [kMaxF][kSStride]
   float* fbs = smem + kSFloats;  // [kBands][kFbStride]
   const float* m = mag + static_cast<size_t>(blockIdx.x) * F * T;
-  for (int c = threadIdx.x; c < kSFloats; c += kThreads) {
-    const int f = c / kSStride, t = c % kSStride;
-    if (f < F && t < T) {
-      cp_async4(S + c, m + f * T + t);
-    } else {
-      S[c] = 0.0f;
-    }
-  }
-  stage_fb<kThreads>(fbs, fb, G, F);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5;
-  constexpr int kWarpsPerRow = kNTiles / kTilesPerWarp;
-  const int mt = warp / kWarpsPerRow;
-  const int nt0 = kTilesPerWarp * (warp % kWarpsPerRow);
-  float* dst = out + static_cast<size_t>(blockIdx.x) * G * T;
   const auto publish = [&](int k, int tile, double x) { part[k][tile] = x; };
   const auto sync = [] { __syncthreads(); };
-  if constexpr (kF32) {
-    fb_znorm_tiles_f32<kTilesPerWarp>(fbs, S, F, mt, nt0, true, G, T, part,
-                                      dst, publish, sync);
+  constexpr int kWarpsPerRow = kNTiles / kTilesPerWarp;
+  if constexpr (kRanges) {
+    const int warp = threadIdx.x >> 5;
+    fb_znorm_ranges<kTilesPerWarp, kF32, kThreads>(
+        S, fbs, m, fb, F, T, G, warp / kWarpsPerRow,
+        kTilesPerWarp * (warp % kWarpsPerRow), true, part,
+        out + static_cast<size_t>(blockIdx.x) * G * T, publish, sync);
   } else {
-    fb_znorm_tiles<kTilesPerWarp>(fbs, S, mt, nt0, true, G, T, part, dst,
-                                  publish, sync);
+    for (int c = threadIdx.x; c < kSFloats; c += kThreads) {
+      const int f = c / kSStride, t = c % kSStride;
+      if (f < F && t < T) {
+        cp_async4(S + c, m + f * T + t);
+      } else {
+        S[c] = 0.0f;
+      }
+    }
+    stage_fb<kThreads>(fbs, fb, G, F);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+
+    const int warp = threadIdx.x >> 5;
+    const int mt = warp / kWarpsPerRow;
+    const int nt0 = kTilesPerWarp * (warp % kWarpsPerRow);
+    float* dst = out + static_cast<size_t>(blockIdx.x) * G * T;
+    if constexpr (kF32) {
+      fb_znorm_tiles_f32<kTilesPerWarp>(fbs, S, F, mt, nt0, true, G, T,
+                                        part, dst, publish, sync);
+    } else {
+      fb_znorm_tiles<kTilesPerWarp>(fbs, S, mt, nt0, true, G, T, part, dst,
+                                    publish, sync);
+    }
   }
 }
 
-int g_smem[2][smem_once::kMaxDevices];
+int g_smem[2][2][smem_once::kMaxDevices];
+
+template <bool kF32, bool kRanges>
+cudaError_t launch_tiles(const float* mag, const float* fb, float* out,
+                         int b, int F, int T, int G, cudaStream_t s) {
+  const cudaError_t err = smem_once::raise(
+      reinterpret_cast<const void*>(epilogue_kernel<kF32, kRanges>),
+      kSmemBytes, g_smem[kF32][kRanges]);
+  if (err != cudaSuccess || b == 0) return err;
+  epilogue_kernel<kF32, kRanges><<<b, kThreads, kSmemBytes, s>>>(
+      mag, fb, out, F, T, G);
+  return cudaGetLastError();
+}
 
 template <bool kF32>
 cudaError_t launch(const float* mag, const float* fb, float* out, int b,
                    int F, int T, int G, cudaStream_t s) {
-  const cudaError_t err = smem_once::raise(
-      reinterpret_cast<const void*>(epilogue_kernel<kF32>), kSmemBytes,
-      g_smem[kF32]);
-  if (err != cudaSuccess || b == 0) return err;
-  epilogue_kernel<kF32><<<b, kThreads, kSmemBytes, s>>>(mag, fb, out, F, T,
-                                                        G);
-  return cudaGetLastError();
+  return T > kRows || F > kMaxF || G > kBands
+             ? launch_tiles<kF32, true>(mag, fb, out, b, F, T, G, s)
+             : launch_tiles<kF32, false>(mag, fb, out, b, F, T, G, s);
 }
 
 }  // namespace
@@ -125,7 +153,7 @@ cudaError_t launch(const float* mag, const float* fb, float* out, int b,
 extern "C" int fused_epilogue_launch(const float* mag, const float* fb,
                                      float* out, int b, int F, int T, int G,
                                      int f32, void* stream) {
-  if (T < 1 || T > kRows || F < 1 || F > kMaxF || G < 1 || G > kBands) {
+  if (T < 1 || F < 1 || G < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

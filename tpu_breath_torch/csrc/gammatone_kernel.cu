@@ -44,6 +44,19 @@
 //   in tile order. So the mean and variance are the same in the three
 //   blocks, and a clip's bits do not depend on B or on its place in the
 //   batch: no atomics, and no part of the decomposition depends on B.
+// - The grid is one-dimensional, the clip on x (blockIdx.x / 3), so it
+//   takes any number of clips.
+// - A clip past the cluster's tiles (T > 64 frames, F > 264 frequencies,
+//   G > 64 bands, or K not a multiple of 32; the main path's clips are
+//   63 frames of 512 -> 257 -> 64) takes a second instantiation (kRanges),
+//   chosen on the host, so the main path keeps its code: the DFT runs over
+//   frame ranges of 64 and frequency ranges of 264, with K padded to the
+//   next multiple of 32 inside the kernel (zero frames against zero basis
+//   rows add exact zeros), and writes |S| into a [B, F, T] scratch in
+//   device memory; after a cluster barrier the three blocks run kernel B's
+//   range epilogue on it (gt_epilogue.cuh, fb_znorm_ranges), their tile
+//   sums shared as above. The basis tiles then cover every frequency
+//   range (tiled_basis).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -71,37 +84,40 @@ constexpr int kRingFloats = kStages * kStageFloats;
 static_assert(kSFloats <= kRingFloats, "|S| must fit in the ring");
 constexpr int kSmemBytes = (kRingFloats + kFbFloats) * 4;
 
-__global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads, 1)
-gammatone_kernel(const float* __restrict__ frames,  // [B, T, K]
-                 const float* __restrict__ tiles,   // tile_basis(basis)
-                 const float* __restrict__ fb,      // [G, F]
-                 float* __restrict__ out,           // [B, G, T]
-                 int T, int K, int F, int G) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ double part[2][kTiles];  // per output tile: sum, sum of squares
-  cg::cluster_group cluster = cg::this_cluster();
-  const int r = static_cast<int>(cluster.block_rank());
+// The DFT of frames [0, rows) at fr (a clip's rows of K floats) by this
+// block's kFreqs frequencies, the basis tiles at bt (n_kt k-tiles):
+// acc[m tile][re, im][fragment]. The frames and the basis stream through
+// the ring; frames rows..63 are zeros in every stage. kRanges: so are the
+// k columns from K on (K need not be a multiple of kKT); else fb is staged
+// into fbs with the second stage.
+template <bool kRanges>
+__device__ __forceinline__ void dft(double (&acc)[kRows / 16][2][4],
+                                    float* smem, const float* fr,
+                                    const float* bt, int rows, int K,
+                                    int n_kt, float* fbs, const float* fb,
+                                    int G, int F) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const float* fr = frames + static_cast<size_t>(blockIdx.y) * T * K;
-  const float* bt = tiles + static_cast<size_t>(r) * K * 2 * kFreqs;
-  const int n_kt = K / kKT;
-  float* fbs = smem + kRingFloats;  // [kBands][kFbStride]
 
-  // frames T..63 are zero in every stage; cp.async never writes them
-  const int pad = (kRows - T) * kAStride;
+  // frames rows..63 are zero in every stage; cp.async never writes them
+  const int pad = (kRows - rows) * kAStride;
   for (int i = threadIdx.x; i < kStages * pad; i += kThreads) {
-    smem[(i / pad) * kStageFloats + T * kAStride + i % pad] = 0.0f;
+    smem[(i / pad) * kStageFloats + rows * kAStride + i % pad] = 0.0f;
   }
   auto load_stage = [&](int kt, int slot) {
     float* a = smem + slot * kStageFloats;
     float* b = a + kAFloats;
-    const int a_chunks = T * (kKT / 4);
+    const int a_chunks = rows * (kKT / 4);
     for (int c = threadIdx.x; c < a_chunks + kBFloats / 4; c += kThreads) {
       if (c < a_chunks) {
         const int row = c / (kKT / 4), q = c % (kKT / 4);
-        cp_async16(a + row * kAStride + 4 * q,
-                   fr + static_cast<size_t>(row) * K + kt * kKT + 4 * q);
+        if (kRanges && kt * kKT + 4 * q >= K) {
+          *reinterpret_cast<float4*>(a + row * kAStride + 4 * q) =
+              make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        } else {
+          cp_async16(a + row * kAStride + 4 * q,
+                     fr + static_cast<size_t>(row) * K + kt * kKT + 4 * q);
+        }
       } else {
         const int q = c - a_chunks;
         cp_async16(b + 4 * q, bt + static_cast<size_t>(kt) * kBFloats + 4 * q);
@@ -109,12 +125,15 @@ gammatone_kernel(const float* __restrict__ frames,  // [B, T, K]
     }
   };
 
-  // the DFT: acc[m tile][re, im][fragment]
-  double acc[kRows / 16][2][4] = {};
+#pragma unroll
+  for (int mt = 0; mt < kRows / 16; ++mt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[mt][0][i] = acc[mt][1][i] = 0.0;
+  }
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < n_kt) load_stage(s, s);
-    if (s == 1) stage_fb<kThreads>(fbs, fb, G, F);  // with the 2nd stage
+    if (s == 1 && !kRanges) stage_fb<kThreads>(fbs, fb, G, F);
     cp_async_commit();
   }
   for (int kt = 0; kt < n_kt; ++kt) {
@@ -140,67 +159,140 @@ gammatone_kernel(const float* __restrict__ frames,  // [B, T, K]
     }
   }
   cp_async_wait<0>();
+}
 
-  // every block of the clip is done with its ring: |S| replaces it
-  cluster.sync();
-  float* S = smem;  // [kMaxF][kSStride], all 264 frequencies
-  float mag[kRows / 16][4];
-#pragma unroll
-  for (int mt = 0; mt < kRows / 16; ++mt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const double re = acc[mt][0][i], im = acc[mt][1][i];
-      mag[mt][i] = __double2float_rn(
-          __dsqrt_rn(__dadd_rn(__dmul_rn(re, re), __dmul_rn(im, im))));
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < kSplit; ++q) {
-    float* dst = cluster.map_shared_rank(S, q);
-#pragma unroll
-    for (int mt = 0; mt < kRows / 16; ++mt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = 16 * mt + g + 8 * (i >> 1);
-        const int f = r * kFreqs + 8 * warp + 2 * t + (i & 1);
-        dst[f * kSStride + row] = mag[mt][i];
-      }
-    }
-  }
-  cluster.sync();
+// |S| of fragment value i of m tile mt, rounded to f32 once.
+__device__ __forceinline__ float magnitude(
+    const double (&acc)[kRows / 16][2][4], int mt, int i) {
+  const double re = acc[mt][0][i], im = acc[mt][1][i];
+  return __double2float_rn(
+      __dsqrt_rn(__dadd_rn(__dmul_rn(re, re), __dmul_rn(im, im))));
+}
 
+// Grid (kSplit * B), the clip on x (no limit on B): cluster blockIdx.x /
+// kSplit takes that clip. kRanges: a clip past the cluster's tiles
+// (T > kRows, F > kMaxF, G > kBands or K not a multiple of kKT) in ranges;
+// mag is then a [B, F, T] scratch for its |S|. Else mag is unused.
+template <bool kRanges>
+__global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads, 1)
+gammatone_kernel(const float* __restrict__ frames,  // [B, T, K]
+                 const float* __restrict__ tiles,   // tile_basis(basis)
+                 const float* __restrict__ fb,      // [G, F]
+                 float* __restrict__ out,           // [B, G, T]
+                 float* __restrict__ mag,           // [B, F, T] or unused
+                 int T, int K, int F, int G) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ double part[2][kTiles];  // per output tile: sum, sum of squares
+  cg::cluster_group cluster = cg::this_cluster();
+  const int r = static_cast<int>(cluster.block_rank());
+  const int clip = blockIdx.x / kSplit;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float* fr = frames + static_cast<size_t>(clip) * T * K;
+  float* fbs = smem + kRingFloats;  // [kBands][kFbStride]
   // the filterbank product and the z-score: tile (mt, nt) of [64 bands x
   // 64 frames] on warp tile = 11 r + warp; tile 32 has no work
   const int tile = r * kWarps + warp;
-  fb_znorm_tiles<1>(
-      fbs, S, tile / kNTiles, tile % kNTiles, tile < kTiles, G, T, part,
-      out + static_cast<size_t>(blockIdx.y) * G * T,
-      [&](int k, int q, double x) {
-        for (int rank = 0; rank < kSplit; ++rank) {
-          cluster.map_shared_rank(part[k], rank)[q] = x;
-        }
-      },
-      [&] { cluster.sync(); });  // the last sync: the last access to
-}                                // another block's shared memory
+  const auto publish = [&](int k, int q, double x) {
+    for (int rank = 0; rank < kSplit; ++rank) {
+      cluster.map_shared_rank(part[k], rank)[q] = x;
+    }
+  };
+  const auto sync = [&] { cluster.sync(); };
+  double acc[kRows / 16][2][4];
 
-int g_smem[smem_once::kMaxDevices];
+  if constexpr (!kRanges) {
+    dft<false>(acc, smem, fr, tiles + static_cast<size_t>(r) * K * 2 * kFreqs,
+               T, K, K / kKT, fbs, fb, G, F);
+
+    // every block of the clip is done with its ring: |S| replaces it
+    cluster.sync();
+    float* S = smem;  // [kMaxF][kSStride], all 264 frequencies
+#pragma unroll
+    for (int q = 0; q < kSplit; ++q) {
+      float* dst = cluster.map_shared_rank(S, q);
+#pragma unroll
+      for (int mt = 0; mt < kRows / 16; ++mt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = 16 * mt + g + 8 * (i >> 1);
+          const int f = r * kFreqs + 8 * warp + 2 * t + (i & 1);
+          dst[f * kSStride + row] = magnitude(acc, mt, i);
+        }
+      }
+    }
+    cluster.sync();
+    fb_znorm_tiles<1>(fbs, S, tile / kNTiles, tile % kNTiles, tile < kTiles,
+                      G, T, part, out + static_cast<size_t>(clip) * G * T,
+                      publish, sync);  // the last sync: the last access to
+                                       // another block's shared memory
+  } else {
+    // |S| in frame ranges of kRows and frequency ranges of kMaxF (this
+    // block's kFreqs of each) into mag, then kernel B's range epilogue
+    const int n_kt = (K + kKT - 1) / kKT;
+    float* m = mag + static_cast<size_t>(clip) * F * T;
+    for (int t0 = 0; t0 < T; t0 += kRows) {
+      for (int f0 = 0; f0 < F; f0 += kMaxF) {
+        __syncthreads();  // the last range's reads of the ring are done
+        dft<true>(acc, smem, fr + static_cast<size_t>(t0) * K,
+                  tiles + (static_cast<size_t>(f0 / kMaxF) * kSplit + r) *
+                              n_kt * kBFloats,
+                  min(T - t0, kRows), K, n_kt, fbs, fb, G, F);
+#pragma unroll
+        for (int mt = 0; mt < kRows / 16; ++mt) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int row = t0 + 16 * mt + g + 8 * (i >> 1);
+            const int f = f0 + r * kFreqs + 8 * warp + 2 * t + (i & 1);
+            if (row < T && f < F) {
+              m[static_cast<size_t>(f) * T + row] = magnitude(acc, mt, i);
+            }
+          }
+        }
+      }
+    }
+    __threadfence();
+    cluster.sync();  // the clip's |S| is whole in mag
+    fb_znorm_ranges<1, false, kThreads>(
+        smem, fbs, m, fb, F, T, G, tile / kNTiles, tile % kNTiles,
+        tile < kTiles, part, out + static_cast<size_t>(clip) * G * T,
+        publish, sync);
+  }
+}
+
+int g_smem[2][smem_once::kMaxDevices];
+
+template <bool kRanges>
+cudaError_t launch(const float* frames, const float* tiles, const float* fb,
+                   float* out, float* mag, int b, int T, int K, int F, int G,
+                   cudaStream_t s) {
+  const cudaError_t err = smem_once::raise(
+      reinterpret_cast<const void*>(gammatone_kernel<kRanges>), kSmemBytes,
+      g_smem[kRanges]);
+  if (err != cudaSuccess || b == 0) return err;
+  gammatone_kernel<kRanges><<<kSplit * b, kThreads, kSmemBytes, s>>>(
+      frames, tiles, fb, out, mag, T, K, F, G);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
-// tiles: the basis as tiled_basis lays it out, [3, K / 8, 11, 2, 2, 32].
+// tiles: the basis as tiled_basis lays it out, [ceil(F / 264) * 3,
+// ceil(K / 32) * 4, 11, 2, 2, 32]. mag: null for a clip that fits the
+// cluster's tiles (T <= 64, F <= 264, G <= 64, K a multiple of 32), else
+// a [b, F, T] scratch. K a multiple of 4, frames 16-byte aligned.
 extern "C" int fused_gammatone_launch(const float* frames, const float* tiles,
-                                      const float* fb, float* out, int b,
-                                      int T, int K, int F, int G,
+                                      const float* fb, float* out, float* mag,
+                                      int b, int T, int K, int F, int G,
                                       void* stream) {
-  if (T < 1 || T > kRows || K % kKT != 0 || F > kMaxF || G > kBands) {
+  const bool ranges = T > kRows || F > kMaxF || G > kBands || K % kKT != 0;
+  if (T < 1 || K < 4 || K % 4 != 0 || F < 1 || G < 1 ||
+      (reinterpret_cast<size_t>(frames) & 15) != 0 ||
+      ranges != (mag != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaError_t err = smem_once::raise(
-      reinterpret_cast<const void*>(gammatone_kernel), kSmemBytes, g_smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (b == 0) return 0;
-  gammatone_kernel<<<dim3(kSplit, b), kThreads, kSmemBytes,
-                     static_cast<cudaStream_t>(stream)>>>(
-      frames, tiles, fb, out, T, K, F, G);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      ranges ? launch<true>(frames, tiles, fb, out, mag, b, T, K, F, G, s)
+             : launch<false>(frames, tiles, fb, out, mag, b, T, K, F, G, s));
 }

@@ -15,6 +15,8 @@
 #pragma once
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace gt_epilogue {
 
 constexpr int kMaxF = 264;            // frequencies, padded: 33 k-steps of 8
@@ -160,6 +162,25 @@ __device__ __forceinline__ void znorm_tiles(
   }
 }
 
+// c[j] += fbs [kBands][kFbStride] times S [kMaxF][kSStride] (|S| f-major,
+// both padded with zeros) for the output tiles (mt, nt0 + j), j < N, by
+// DMMA over the kMaxF / 8 k-steps, in the accumulator layout.
+template <int N>
+__device__ __forceinline__ void fb_dmma(double (&c)[N][4], const float* fbs,
+                                        const float* S, int mt, int nt0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll 3
+  for (int s = 0; s < kMaxF / 8; ++s) {
+    double af[4];
+    load_a<kFbStride>(af, fbs + (16 * mt + g) * kFbStride + 8 * s + t);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float* bp = S + (8 * s + t) * kSStride + 8 * (nt0 + j) + g;
+      mma_f64(c[j], af, bp[0], bp[4 * kSStride]);
+    }
+  }
+}
+
 // The output tiles (mt, nt0 + j), j < N, of one clip, by one warp: DMMA of
 // fbs [kBands][kFbStride] by S [kMaxF][kSStride] (|S| f-major, both padded
 // with zeros), f32(log1p) of the sums, then znorm_tiles (the arguments
@@ -169,20 +190,8 @@ __device__ __forceinline__ void fb_znorm_tiles(
     const float* fbs, const float* S, int mt, int nt0, bool live, int G,
     int T, double (*part)[kTiles], float* __restrict__ dst, Publish publish,
     Sync sync) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   double c[N][4] = {};
-  if (live) {
-#pragma unroll 3
-    for (int s = 0; s < kMaxF / 8; ++s) {
-      double af[4];
-      load_a<kFbStride>(af, fbs + (16 * mt + g) * kFbStride + 8 * s + t);
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        const float* bp = S + (8 * s + t) * kSStride + 8 * (nt0 + j) + g;
-        mma_f64(c[j], af, bp[0], bp[4 * kSStride]);
-      }
-    }
-  }
+  if (live) fb_dmma<N>(c, fbs, S, mt, nt0);
   float v[N][4];
 #pragma unroll
   for (int j = 0; j < N; ++j) {
@@ -192,43 +201,49 @@ __device__ __forceinline__ void fb_znorm_tiles(
   znorm_tiles<N>(v, mt, nt0, live, G, T, part, dst, publish, sync);
 }
 
-// Kernel B': the same tiles as fb_znorm_tiles, each output
-// sum_f fb[g, f] * mag[f, t] one f32 FMA chain for f = 0 .. F - 1 (a lane's
-// 8 chains side by side: 2 bands by 4 frames, its fragment's outputs), then
+// Kernel B''s product: c[j] += sum_f fb[g, f] * mag[f, t] for the output
+// tiles (mt, nt0 + j), j < N, each output one f32 FMA chain for
+// f = 0 .. F - 1 in order (a lane's 8 chains side by side: 2 bands by 4
+// frames, its fragment's outputs), from fbs and S as fb_dmma reads them.
+template <int N>
+__device__ __forceinline__ void fb_f32(float (&c)[N][4], const float* fbs,
+                                       const float* S, int F, int mt,
+                                       int nt0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* a = fbs + (16 * mt + g) * kFbStride;
+  const float* b = S + 8 * nt0 + 2 * t;
+  // f in fours, fb by 16-byte loads; the padding's terms (f >= F, zero
+  // fb and |S|) leave the sums as they are
+#pragma unroll 1
+  for (int f4 = 0; f4 < F; f4 += 4) {
+    const float4 a0 = *reinterpret_cast<const float4*>(a + f4);
+    const float4 a1 = *reinterpret_cast<const float4*>(a + 8 * kFbStride + f4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float w0 = e == 0 ? a0.x : e == 1 ? a0.y : e == 2 ? a0.z : a0.w;
+      const float w1 = e == 0 ? a1.x : e == 1 ? a1.y : e == 2 ? a1.z : a1.w;
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float2 x = *reinterpret_cast<const float2*>(
+            b + (f4 + e) * kSStride + 8 * j);
+        c[j][0] = fmaf(w0, x.x, c[j][0]);
+        c[j][1] = fmaf(w0, x.y, c[j][1]);
+        c[j][2] = fmaf(w1, x.x, c[j][2]);
+        c[j][3] = fmaf(w1, x.y, c[j][3]);
+      }
+    }
+  }
+}
+
+// Kernel B': the same tiles as fb_znorm_tiles, the product by fb_f32, then
 // log1pf and znorm_tiles (the arguments after nt0 are its own).
 template <int N, class Publish, class Sync>
 __device__ __forceinline__ void fb_znorm_tiles_f32(
     const float* fbs, const float* S, int F, int mt, int nt0, bool live,
     int G, int T, double (*part)[kTiles], float* __restrict__ dst,
     Publish publish, Sync sync) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   float c[N][4] = {};
-  if (live) {
-    const float* a = fbs + (16 * mt + g) * kFbStride;
-    const float* b = S + 8 * nt0 + 2 * t;
-    // f in fours, fb by 16-byte loads; the padding's terms (f >= F, zero
-    // fb and |S|) leave the sums as they are
-#pragma unroll 1
-    for (int f4 = 0; f4 < F; f4 += 4) {
-      const float4 a0 = *reinterpret_cast<const float4*>(a + f4);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(a + 8 * kFbStride + f4);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float w0 = e == 0 ? a0.x : e == 1 ? a0.y : e == 2 ? a0.z : a0.w;
-        const float w1 = e == 0 ? a1.x : e == 1 ? a1.y : e == 2 ? a1.z : a1.w;
-#pragma unroll
-        for (int j = 0; j < N; ++j) {
-          const float2 x = *reinterpret_cast<const float2*>(
-              b + (f4 + e) * kSStride + 8 * j);
-          c[j][0] = fmaf(w0, x.x, c[j][0]);
-          c[j][1] = fmaf(w0, x.y, c[j][1]);
-          c[j][2] = fmaf(w1, x.x, c[j][2]);
-          c[j][3] = fmaf(w1, x.y, c[j][3]);
-        }
-      }
-    }
-  }
+  if (live) fb_f32<N>(c, fbs, S, F, mt, nt0);
   float v[N][4];
 #pragma unroll
   for (int j = 0; j < N; ++j) {
@@ -236,6 +251,130 @@ __device__ __forceinline__ void fb_znorm_tiles_f32(
     for (int i = 0; i < 4; ++i) v[j][i] = log1pf(c[j][i]);
   }
   znorm_tiles<N>(v, mt, nt0, live, G, T, part, dst, publish, sync);
+}
+
+// A clip past one block's tiles (T > kRows, F > kMaxF or G > kBands), for
+// kernels B and B' (kF32) and B'': its outputs in tiles of kBands bands by
+// kRows frames, band ranges inside frame ranges, each tile's product
+// summed over frequency ranges of kMaxF in order (so B' keeps one f32
+// chain an output, f = 0 .. F - 1). mag [F, T] is the clip's |S| in device
+// memory; each frequency range of |S| and fb is staged into S and fbs as
+// kernel B stages a whole clip. Three passes over the tiles in that order:
+// f32(log1p) of the sums into dst, each tile's sum published as
+// znorm_tiles does and added in tile order; the squared deviations, read
+// back from dst; the z-score, written over dst. A lane reads back only the
+// values it wrote. The tables alternate between part[0] and part[1], so
+// one sync() a tile both completes a table and frees the other.
+template <int N, bool kF32, int kThreads, class Publish, class Sync>
+__device__ __forceinline__ void fb_znorm_ranges(
+    float* S, float* fbs, const float* __restrict__ mag,
+    const float* __restrict__ fb, int F, int T, int G, int mt, int nt0,
+    bool live, double (*part)[kTiles], float* __restrict__ dst,
+    Publish publish, Sync sync) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  // the index in dst of value i of a lane's tile j in the range (g0, t0),
+  // or -1 past G or T
+  const auto at = [&](int g0, int t0, int j, int i) {
+    const int row = g0 + 16 * mt + g + 8 * (i >> 1);
+    const int col = t0 + 8 * (nt0 + j) + 2 * t + (i & 1);
+    return live && row < G && col < T ? row * T + col : -1;
+  };
+  int k = 0;  // the table the next tile sums go to
+  // adds the tile sums of lane values x(j, i) of the range (g0, t0) to
+  // total in tile order
+  const auto add_tiles = [&](double& total, int g0, int t0, auto x) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      double sum = 0.0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (at(g0, t0, j, i) >= 0) sum += x(j, i);
+      }
+      sum = warp_sum(sum);
+      if (lane == 0 && live) publish(k, mt * kNTiles + nt0 + j, sum);
+    }
+    sync();
+    for (int q = 0; q < kTiles; ++q) total += part[k][q];
+    k ^= 1;
+  };
+  const double n = static_cast<double>(G) * T;
+
+  double total = 0.0;
+  for (int t0 = 0; t0 < T; t0 += kRows) {
+    for (int g0 = 0; g0 < G; g0 += kBands) {
+      using Acc = typename std::conditional<kF32, float, double>::type;
+      Acc c[N][4] = {};
+      for (int f0 = 0; f0 < F; f0 += kMaxF) {
+        __syncthreads();  // the last range's reads of S and fbs are done
+        for (int q = threadIdx.x; q < kSFloats; q += kThreads) {
+          const int f = f0 + q / kSStride, tc = q % kSStride;
+          if (f < F && tc < kRows && t0 + tc < T) {
+            cp_async4(S + q, mag + static_cast<size_t>(f) * T + t0 + tc);
+          } else {
+            S[q] = 0.0f;
+          }
+        }
+        for (int q = threadIdx.x; q < kFbFloats; q += kThreads) {
+          const int row = g0 + q / kFbStride, f = f0 + q % kFbStride;
+          if (row < G && q % kFbStride < kMaxF && f < F) {
+            cp_async4(fbs + q, fb + static_cast<size_t>(row) * F + f);
+          } else {
+            fbs[q] = 0.0f;
+          }
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        if (live) {
+          if constexpr (kF32) {
+            fb_f32<N>(c, fbs, S, min(F - f0, kMaxF), mt, nt0);
+          } else {
+            fb_dmma<N>(c, fbs, S, mt, nt0);
+          }
+        }
+      }
+      float v[N][4];
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if constexpr (kF32) {
+            v[j][i] = log1pf(c[j][i]);
+          } else {
+            v[j][i] = __double2float_rn(log1p(c[j][i]));
+          }
+          const int o = at(g0, t0, j, i);
+          if (o >= 0) dst[o] = v[j][i];
+        }
+      }
+      add_tiles(total, g0, t0, [&](int j, int i) { return double(v[j][i]); });
+    }
+  }
+  const float mean = __double2float_rn(total / n);
+
+  total = 0.0;
+  for (int t0 = 0; t0 < T; t0 += kRows) {
+    for (int g0 = 0; g0 < G; g0 += kBands) {
+      add_tiles(total, g0, t0, [&](int j, int i) {
+        const float d = __fsub_rn(dst[at(g0, t0, j, i)], mean);
+        return static_cast<double>(d) * d;
+      });
+    }
+  }
+  const float var = __double2float_rn(total / n);
+  const float denom = __fadd_rn(__fsqrt_rn(var), 1e-8f);
+  for (int t0 = 0; t0 < T; t0 += kRows) {
+    for (int g0 = 0; g0 < G; g0 += kBands) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int o = at(g0, t0, j, i);
+          if (o >= 0) dst[o] = __fdiv_rn(__fsub_rn(dst[o], mean), denom);
+        }
+      }
+    }
+  }
 }
 
 }  // namespace gt_epilogue

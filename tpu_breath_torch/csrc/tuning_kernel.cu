@@ -22,7 +22,11 @@
 // Design: the block first compacts the clip's valid pairs (pitch > 0) into
 // shared memory, (key, pitch) at 8 bytes a pair, one slot per valid pair,
 // taken by one atomic per warp; the masked pairs stay a count, keyed +inf.
-// Every later pass reads only the k valid pairs. Rank (k-1)//2 is found by
+// Every later pass reads only the k valid pairs. A clip of more than
+// kSmemPairs pairs (about 1.7 s of audio at n_fft 2048; the main path's 1 s
+// clips have 7,875 and 15,808) keeps its list in device memory (a scratch
+// the wrapper allocates, 8 bytes a pair) in a second instantiation, chosen
+// on the host, so the main path keeps its code. Rank (k-1)//2 is found by
 // 4 radix passes of 8 bits: each pass counts the keys that match the digits
 // fixed so far into a 256-bin shared histogram, one atomic per distinct
 // digit in a warp (__match_any_sync), and one warp scans the 256 counts to
@@ -44,6 +48,9 @@ constexpr int kDigitBits = 8;
 constexpr int kRadix = 1 << kDigitBits;
 constexpr int kBatch = 8;  // pairs a thread loads at once
 constexpr uint32_t kInfKey = 0xff800000u;  // the key of +inf
+// pairs a clip whose compacted list stays in shared memory: 8 bytes a
+// pair, under the 227 KB cap (the wrapper's SMEM_PAIRS)
+constexpr int kSmemPairs = 28000;
 
 __device__ __forceinline__ uint32_t ordered_u32(float x) {
   int32_t b = __float_as_int(x);
@@ -137,14 +144,25 @@ __device__ __forceinline__ uint32_t select_rank(const uint32_t* keys, int k,
   return prefix;
 }
 
+// kGlobal: the compacted pairs in `scratch` ([B, 2n] words, the clip's part
+// at blockIdx.x * 2n) instead of dynamic shared memory: a clip of more than
+// kSmemPairs pairs. The code is the same either way.
+template <bool kGlobal>
 __global__ void __launch_bounds__(kThreads)
 tuning_tail_kernel(const float* __restrict__ pitches,
                    const float* __restrict__ mags,
                    const float* __restrict__ edges,  // [kBins + 1]
-                   int* __restrict__ out, int n, float bpo) {
+                   int* __restrict__ out, uint32_t* scratch, int n,
+                   float bpo) {
   extern __shared__ uint32_t smem[];
-  uint32_t* keys = smem;                            // [n], k used
-  float* pit = reinterpret_cast<float*>(smem + n);  // [n], k used
+  uint32_t* keys;  // [n], k used
+  float* pit;      // [n], k used
+  if constexpr (kGlobal) {
+    keys = scratch + 2 * static_cast<size_t>(blockIdx.x) * n;
+  } else {
+    keys = smem;
+  }
+  pit = reinterpret_cast<float*>(keys + n);
   __shared__ int hist[kRadix];  // radix counts, then the 100-bin histogram
   __shared__ int2 red[kWarps];
   __shared__ int bcast[2];
@@ -242,16 +260,28 @@ tuning_tail_kernel(const float* __restrict__ pitches,
 
 }  // namespace
 
+// scratch: null for n <= kSmemPairs, else [b, 2n] 4-byte words.
 extern "C" int tuning_index_launch(const float* pitches, const float* mags,
-                                   const float* edges, int* out, int b, int n,
-                                   int bpo, void* stream) {
+                                   const float* edges, int* out,
+                                   uint32_t* scratch, int b, int n, int bpo,
+                                   void* stream) {
+  if (n < 0 || (n > kSmemPairs) != (scratch != nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (scratch != nullptr) {
+    if (b == 0) return 0;
+    tuning_tail_kernel<true><<<b, kThreads, 0, s>>>(
+        pitches, mags, edges, out, scratch, n, static_cast<float>(bpo));
+    return static_cast<int>(cudaGetLastError());
+  }
   const size_t smem = static_cast<size_t>(n) * 8;
   cudaError_t err = cudaFuncSetAttribute(
-      tuning_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      tuning_tail_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (b == 0) return 0;
-  tuning_tail_kernel<<<b, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      pitches, mags, edges, out, n, static_cast<float>(bpo));
+  tuning_tail_kernel<false><<<b, kThreads, smem, s>>>(
+      pitches, mags, edges, out, nullptr, n, static_cast<float>(bpo));
   return static_cast<int>(cudaGetLastError());
 }

@@ -128,10 +128,14 @@ def _extract(y: torch.Tensor, spec: FeatureSpec, fused_gt: bool
 
 def extract_features_batched(wavs: np.ndarray,
                              spec: FeatureSpec = DEFAULT_FEATURES,
-                             chunk: int = 128, device="cuda"
+                             chunk: int = 128, device="cuda", mesh=None
                              ) -> tuple[np.ndarray, np.ndarray]:
     """wavs[N, 16000] -> numpy (features [N, 9, 128, 63], scalars [N, 36]),
-    in chunks of `chunk` clips on `device`."""
+    in chunks of `chunk` clips on `device`; under a data-parallel mesh
+    (parallel/mesh.py) the ranks share the chunks (_extract_sharded) and
+    every rank returns the whole arrays."""
+    if mesh is not None:
+        return _extract_sharded(wavs, spec, chunk, mesh)
     device = resolve_device(device)
     n = wavs.shape[0]
     feats_out = np.empty((n, spec.n_channels, spec.n_mels, spec.t_fixed),
@@ -143,4 +147,33 @@ def extract_features_batched(wavs: np.ndarray,
         f, s = extract_features(y.to(device), spec)
         feats_out[lo:hi] = f.cpu().numpy()
         scal_out[lo:hi] = s.cpu().numpy()
+    return feats_out, scal_out
+
+
+def _extract_sharded(wavs: np.ndarray, spec: FeatureSpec, chunk: int,
+                     mesh) -> tuple[np.ndarray, np.ndarray]:
+    """Data-parallel extraction (tpu_breath/features.py::_extract_sharded):
+    every rank holds all the wavs; a super-chunk is mesh.world * chunk
+    clips (the last one padded with silence, so the geometry stays fixed),
+    rank r extracts its rows [r chunk, (r + 1) chunk) on its device, and
+    the ranks' rows are all-gathered, so every rank returns the whole
+    arrays (JAX's process_allgather)."""
+    from tpu_breath_torch.parallel import mesh as mesh_lib
+
+    n = wavs.shape[0]
+    feats_out = np.empty((n, spec.n_channels, spec.n_mels, spec.t_fixed),
+                         np.float32)
+    scal_out = np.empty((n, spec.n_scalars), np.float32)
+    super_chunk = chunk * mesh.world
+    for lo in range(0, n, super_chunk):
+        hi = min(lo + super_chunk, n)
+        mine = np.zeros((chunk, wavs.shape[1]), np.float32)
+        part = wavs[lo + mesh.rank * chunk:min(lo + (mesh.rank + 1) * chunk,
+                                               hi)]
+        mine[:len(part)] = part
+        f, s = extract_features(torch.from_numpy(mine).to(mesh.device), spec)
+        feats_out[lo:hi] = mesh_lib.all_gather_rows(mesh, f).cpu().numpy()[
+            :hi - lo]
+        scal_out[lo:hi] = mesh_lib.all_gather_rows(mesh, s).cpu().numpy()[
+            :hi - lo]
     return feats_out, scal_out

@@ -11,7 +11,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpu_breath_torch.models.layers import Classifier, ConvBlock, MLPBlock
+from tpu_breath_torch.models.layers import (Classifier, ConvBlock, Dropout2d,
+                                            MLPBlock)
 
 IN_CHANNELS = 9
 WIDTHS = (32, 64, 128, 128, 256, 256, 256, 256)
@@ -30,7 +31,7 @@ class CNN8(Classifier):
         d = dropout_rate
         ins = (IN_CHANNELS,) + WIDTHS[:-1]
         self.convs = nn.ModuleList(ConvBlock(i, o) for i, o in zip(ins, WIDTHS))
-        self.channel_dropout = nn.Dropout2d(d)
+        self.channel_dropout = Dropout2d(d)
         self.scalar_mlp = nn.ModuleList([
             MLPBlock(num_scalar_features, 64, d), MLPBlock(64, 64)])
         self.classifier = nn.ModuleList([

@@ -4,6 +4,14 @@ tpu_breath/models/layers.py), in NCHW.
 BatchNorm trains as Flax's nn.BatchNorm(momentum=0.9, epsilon=1e-5) does:
 Flax's momentum 0.9 is PyTorch's 0.1, and Flax's running variance tracks
 the *biased* batch variance where nn.BatchNorm2d stores the unbiased one.
+
+Under a data-parallel mesh of more than one rank (set_mesh) the layers
+compute what the single process computes over the global batch, as XLA does
+under a sharded jit: BatchNorm's statistics and their gradient sums are
+all-reduced over the ranks (global_batch_norm), and Dropout / Dropout2d
+draw their masks for the global batch, each rank keeping its rows. Without
+a mesh, or with one rank, they are nn.BatchNorm2d's, nn.Dropout's and
+nn.Dropout2d's own code.
 """
 from __future__ import annotations
 
@@ -14,8 +22,69 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpu_breath_torch.parallel import mesh as mesh_lib
+
 BN_EPS = 1e-5
 FLAX_MOMENTUM = 0.9
+
+
+def _spread(mesh) -> bool:
+    """Whether a mesh spreads the batch over more than one rank."""
+    return mesh is not None and mesh.world > 1
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Training BatchNorm of this rank's rows x [b, C, ...] with the global
+    batch's mean and 1/std (given), its backward as SyncBatchNorm's: the
+    input gradient needs the sums of dy and dy * xhat over the global
+    batch (all-reduced); the weight and bias gradients are this rank's
+    sums, which the step's gradient mean over the ranks completes. In f32;
+    the output in x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, mean, invstd, mesh, n):
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        xhat = (x.float() - mean.view(shape)) * invstd.view(shape)
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.mesh, ctx.n = mesh, n
+        return (xhat * weight.view(shape) + bias.view(shape)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, mean, invstd = ctx.saved_tensors
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        dims = [0] + list(range(2, x.dim()))
+        xhat = (x.float() - mean.view(shape)) * invstd.view(shape)
+        dy = dy.float()
+        local = torch.cat([dy.sum(dims), (dy * xhat).sum(dims)])
+        total = mesh_lib.all_reduce_sum_(ctx.mesh, local.double())
+        sum_dy, sum_dy_xhat = (total / ctx.n).float().chunk(2)
+        dx = (dy - sum_dy.view(shape) - xhat * sum_dy_xhat.view(shape)) * (
+            weight * invstd).view(shape)
+        d_bias, d_weight = local.chunk(2)
+        return dx.to(x.dtype), d_weight, d_bias, None, None, None, None
+
+
+def global_batch_norm(bn: "BatchNorm", x: torch.Tensor) -> torch.Tensor:
+    """bn in training on this rank's rows x, with the mean and biased
+    variance of the global batch (sums of x and x^2 in float64,
+    all-reduced over bn.mesh); updates bn's running statistics as Flax
+    does, by the global ones."""
+    dims = [0] + list(range(2, x.dim()))
+    with torch.no_grad():
+        xd = x.double()
+        stats = torch.cat([xd.sum(dims), xd.square().sum(dims)])
+        del xd
+        mesh_lib.all_reduce_sum_(bn.mesh, stats)
+        n = x.numel() // x.shape[1] * bn.mesh.world
+        mean, sq = (stats / n).chunk(2)
+        var = (sq - mean * mean).clamp(min=0.0)
+        invstd = torch.rsqrt(var + bn.eps).float()
+        m = bn.momentum
+        bn.running_mean.mul_(1 - m).add_(m * mean.float())
+        bn.running_var.mul_(1 - m).add_(m * var.float())
+    return _GlobalBatchNorm.apply(x, bn.weight, bn.bias, mean.float(), invstd,
+                                  bn.mesh, n)
 
 
 class BatchNorm(nn.modules.batchnorm._BatchNorm):
@@ -23,11 +92,14 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
 
     Training normalises with the biased batch statistics (as both frameworks
     do) and updates running_mean = 0.9 * old + 0.1 * mean and running_var =
-    0.9 * old + 0.1 * biased var. Keeps nn.BatchNorm2d's state_dict keys."""
+    0.9 * old + 0.1 * biased var. Keeps nn.BatchNorm2d's state_dict keys.
+    Under a mesh of more than one rank (`mesh`, set by set_mesh) training
+    takes the statistics of the global batch (global_batch_norm)."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=BN_EPS,
                          momentum=1.0 - FLAX_MOMENTUM)
+        self.mesh = None
 
     def _check_input_dim(self, x: torch.Tensor) -> None:
         if x.dim() not in (2, 4):
@@ -38,6 +110,8 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        if _spread(self.mesh):
+            return global_batch_norm(self, x)
         n = x.numel() // x.shape[1]
         old = self.running_var * FLAX_MOMENTUM
         # a copy: autograd keeps the tensor F.batch_norm updated
@@ -49,6 +123,51 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
             # Bessel factor back out of the new share
             self.running_var.copy_((var - old) * ((n - 1) / n) + old)
         return out
+
+
+class _GlobalDropout:
+    """Dropout drawn for the global batch under a mesh of more than one
+    rank: the noise of the whole global batch is drawn by the functional
+    itself, on ones of the global batch's shape (from the same seeded
+    generator on every rank, so the ranks agree with no communication, and
+    as the single process draws it for that batch), and this rank keeps its
+    rows: rank r's b rows are rows [r b, (r + 1) b)."""
+
+    mesh = None
+
+    def _global(self, x: torch.Tensor, tail: tuple, draw) -> torch.Tensor:
+        b = x.shape[0]
+        ones = torch.ones((b * self.mesh.world,) + tail, dtype=x.dtype,
+                          device=x.device)
+        return x * draw(ones)[self.mesh.rank * b:(self.mesh.rank + 1) * b]
+
+
+class Dropout(_GlobalDropout, nn.Dropout):
+    """nn.Dropout; under a mesh the global batch's mask (_GlobalDropout)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.p > 0 and _spread(self.mesh)):
+            return super().forward(x)
+        return self._global(x, tuple(x.shape[1:]),
+                            lambda ones: F.dropout(ones, self.p, True))
+
+
+class Dropout2d(_GlobalDropout, nn.Dropout2d):
+    """nn.Dropout2d (whole channels); under a mesh the global batch's mask
+    (_GlobalDropout): one value a (clip, channel), as F.dropout2d draws."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.p > 0 and _spread(self.mesh)):
+            return super().forward(x)
+        return self._global(x, (x.shape[1],) + (1,) * (x.dim() - 2),
+                            lambda ones: F.dropout2d(ones, self.p, True))
+
+
+def set_mesh(model: nn.Module, mesh) -> None:
+    """Point every BatchNorm and Dropout of model at mesh (None: off)."""
+    for m in model.modules():
+        if isinstance(m, (BatchNorm, _GlobalDropout)):
+            m.mesh = mesh
 
 
 def _act_bn(x: torch.Tensor, bn: BatchNorm, order: str) -> torch.Tensor:
@@ -86,7 +205,7 @@ class MLPBlock(nn.Module):
         self.order = order
         self.dense = nn.Linear(in_features, features, bias=use_bias)
         self.bn = BatchNorm(features)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.dropout(_act_bn(self.dense(x), self.bn, self.order))

@@ -13,7 +13,7 @@ import torch
 from torch import nn
 
 from tpu_breath_torch.models.layers import (BatchNorm, Classifier, ConvBlock,
-                                            MLPBlock, max_pool_2x2)
+                                            Dropout2d, MLPBlock, max_pool_2x2)
 
 IN_CHANNELS = 9
 WIDTHS = (64, 128, 256, 512)
@@ -38,8 +38,8 @@ class VGG(Classifier):
                                        use_bias=False))
                 cin = width
         self.convs = nn.ModuleList(convs)
-        self.drop_half = nn.Dropout2d(d * 0.5)
-        self.drop = nn.Dropout2d(d)
+        self.drop_half = Dropout2d(d * 0.5)
+        self.drop = Dropout2d(d)
         self.res_conv = nn.Conv2d(WIDTHS[2], WIDTHS[3], 1, bias=False)
         self.res_bn = BatchNorm(WIDTHS[3])
         self.scalar_mlp = nn.ModuleList([

@@ -28,11 +28,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry point -> argument types (all return a cudaError_t as int)
 SIGNATURES = {
-    "tuning_index_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "tuning_index_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "fused_epilogue_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "fused_gammatone_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "fused_gammatone_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _P],
     "suppress_peaks_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "cqt_mag_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+    "cqt_mag_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                        _P],
 }
 

@@ -35,7 +35,8 @@ FRAMES = 16   # frames a work item sums, or half of them (csrc: kFrames)
 WARPS = 8     # warps a block, one block an SM (csrc: kWarps)
 LANES = 32    # samples a step of an item's loop, one a lane
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may opt in to: the
-                      # staged row (staged_len floats)
+                      # staged row (staged_len floats) up to this, else the
+                      # row is staged in device memory
 REDUCE_STEPS = 4  # an item's butterfly and stores, in steps of its loop
 HALF_STEP = 0.85  # a step of a half item (FRAMES // 2 frames), in steps:
                   # latency-bound, nearly a whole one (measured)
@@ -235,8 +236,10 @@ def cqt_mag(y: torch.Tensor, sr: int, hop_length: int, fmin: float,
             n_bins: int, bins_per_octave: int) -> torch.Tensor:
     """|CQT| of y[B, n] f32 -> [B, n_bins, 1 + n//hop] f32, librosa
     scale=True semantics at tuning 0. CPU tensors run the plain version;
-    CUDA tensors run the kernel, which takes any hop whose staged row fits
-    its shared memory (staged_len; at hop 256, n up to ~50,000)."""
+    CUDA tensors run the kernel at any hop and length: a row whose staged
+    copy (staged_len) fits shared memory (at hop 256, n up to ~50,000) is
+    staged there by the kernel; a longer one is staged here in device
+    memory, and the kernel's second instantiation reads it from there."""
     global LAUNCHES
     if y.dim() != 2:
         raise ValueError(f"y {tuple(y.shape)}: want [B, n_samples]")
@@ -249,9 +252,10 @@ def cqt_mag(y: torch.Tensor, sr: int, hop_length: int, fmin: float,
         raise TypeError("cqt kernel takes a contiguous float32 tensor")
     b, n = y.shape
     sig_len = staged_len(n, hop_length)
-    if sig_len * 4 > SMEM_LIMIT:
-        raise ValueError(f"{n} samples at hop {hop_length}: the staged row "
-                         f"exceeds the kernel's shared memory")
+    pad = staged_pad(hop_length)
+    staged = sig_len * 4 > SMEM_LIMIT
+    if staged:  # the rows, staged in device memory as a block stages them
+        y = torch.nn.functional.pad(y, (pad, sig_len - pad - n))
     key = (sr, fmin, n_bins, bins_per_octave)
     shares = max(1, _sm_count(y.device.index or 0) // max(b, 1))
     bank = spectral.device_const(packed_bank, *key, device=y.device)
@@ -263,8 +267,8 @@ def cqt_mag(y: torch.Tensor, sr: int, hop_length: int, fmin: float,
     stream = torch.cuda.current_stream(y.device).cuda_stream
     rc = _build.lib().cqt_mag_launch(
         y.data_ptr(), bank.data_ptr(), table.data_ptr(), out.data_ptr(), b,
-        n, staged_pad(hop_length), sig_len, hop_length, n_bins, n_frames,
-        shares, stream)
+        n, pad, sig_len, hop_length, n_bins, n_frames, shares, int(staged),
+        stream)
     _build.check(rc, "cqt_mag_launch")
     LAUNCHES += 1
     return out

@@ -11,8 +11,11 @@ z-normed log1p(fb @ |S|) over each whole clip.
   log1p, the like-for-like partner of a plain f32 GEMM at HIGHEST
   precision: the same kernel with each output one f32 FMA chain on the
   CUDA cores (no TF32, no tensor cores).
-Both take the same shapes and sum the z-score in the same tile order, so a
-clip's rows depend neither on B nor on its place in the batch.
+Both take any shape and sum the z-score in the same tile order, so a
+clip's rows depend neither on B nor on its place in the batch. A clip past
+one block's tiles (F > MAX_FREQS, T > MAX_FRAMES or G > MAX_BANDS) runs the
+kernel's range instantiation: the same tiles in ranges, the log1p values
+kept in the output until the z-score's second pass.
 """
 from __future__ import annotations
 
@@ -20,8 +23,8 @@ import torch
 
 from tpu_breath_torch.ops.cuda import _build
 
-# |S| padded to MAX_FREQS x MAX_FRAMES, fb to MAX_BANDS rows (the .cu's
-# kMaxF, kRows, kBands)
+# one block's tiles: |S| padded to MAX_FREQS x MAX_FRAMES, fb to MAX_BANDS
+# rows (the .cu's kMaxF, kRows, kBands); larger clips go in ranges of these
 MAX_FREQS = 264
 MAX_FRAMES = 64
 MAX_BANDS = 64
@@ -69,10 +72,8 @@ def fused_epilogue(mag: torch.Tensor, fb: torch.Tensor,
         raise ValueError("epilogue kernel takes contiguous tensors")
     b, f, t = mag.shape
     g = fb.shape[0]
-    if not (1 <= f <= MAX_FREQS and 1 <= t <= MAX_FRAMES
-            and 1 <= g <= MAX_BANDS):
-        raise ValueError(f"F {f}, T {t}, G {g}: kernels B and B' take F <= "
-                         f"{MAX_FREQS}, T <= {MAX_FRAMES}, G <= {MAX_BANDS}")
+    if min(f, t, g) < 1:
+        raise ValueError(f"F {f}, T {t}, G {g}: want F, T, G >= 1")
     out = torch.empty(b, g, t, dtype=torch.float32, device=mag.device)
     stream = torch.cuda.current_stream(mag.device).cuda_stream
     rc = _build.lib().fused_epilogue_launch(

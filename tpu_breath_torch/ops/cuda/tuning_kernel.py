@@ -5,7 +5,9 @@ librosa's estimate_tuning takes the masked median of the magnitudes, keeps
 the pitches whose magnitude reaches it, bins mod(bpo * log2(pitch / 27.5), 1)
 into 100 bins and returns the argmax bin. The CUDA kernel does the whole tail
 for one clip per block; the plain version below is the same math in PyTorch
-and is what CPU tensors run.
+and is what CPU tensors run. The kernel takes clips of any length: past
+SMEM_PAIRS pairs a clip its compacted list sits in device memory, the same
+code otherwise.
 """
 from __future__ import annotations
 
@@ -19,7 +21,10 @@ from tpu_breath_torch.ops.cuda import _build
 
 A440_OVER16 = 27.5
 N_BINS = 100
-MAX_PAIRS = 28_000  # 8 bytes a pair in shared memory, under the 227 KB cap
+SMEM_PAIRS = 28_000  # clips of up to this many pairs keep the compacted
+                    # list in shared memory (8 bytes a pair, under the
+                    # 227 KB cap; csrc: kSmemPairs); longer ones in a
+                    # device-memory scratch the wrapper allocates
 
 LAUNCHES = 0
 
@@ -88,14 +93,15 @@ def estimate_tuning_index(pitches: torch.Tensor, mags: torch.Tensor,
         raise ValueError("tuning kernel takes contiguous tensors")
     b = pitches.shape[0]
     n = pitches.numel() // max(b, 1)
-    if n > MAX_PAIRS:
-        raise ValueError(f"{n} pairs per clip exceed the kernel's "
-                         f"shared-memory capacity ({MAX_PAIRS})")
     out = torch.empty(b, dtype=torch.int32, device=pitches.device)
+    scratch = (torch.empty(b, 2 * n, dtype=torch.int32,
+                           device=pitches.device)
+               if n > SMEM_PAIRS else None)
     stream = torch.cuda.current_stream(pitches.device).cuda_stream
     rc = _build.lib().tuning_index_launch(
         pitches.data_ptr(), mags.data_ptr(), _edges(pitches.device).data_ptr(),
-        out.data_ptr(), b, n, int(bins_per_octave), stream)
+        out.data_ptr(), None if scratch is None else scratch.data_ptr(), b, n,
+        int(bins_per_octave), stream)
     _build.check(rc, "tuning_index_launch")
     LAUNCHES += 1
     return out

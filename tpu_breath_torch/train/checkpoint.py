@@ -20,7 +20,8 @@ STATE_FILE = "train_state.pt"
 META_FILE = "meta.json"
 
 
-def _dir(save_dir: str, epoch: int) -> str:
+def epoch_dir(save_dir: str, epoch: int) -> str:
+    """The directory of the checkpoint of `epoch` under save_dir."""
     return os.path.join(os.path.abspath(save_dir), f"best_epoch{epoch:03d}")
 
 
@@ -29,7 +30,7 @@ def save(save_dir: str, model: torch.nn.Module, epoch: int,
          step: int = 0) -> str:
     """Write model.state_dict(), the optimizer state and step (when an
     optimizer is given), then {"epoch", **metadata}; returns the path."""
-    path = _dir(save_dir, epoch)
+    path = epoch_dir(save_dir, epoch)
     os.makedirs(path, exist_ok=True)
     state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     torch.save(state, os.path.join(path, MODEL_FILE))

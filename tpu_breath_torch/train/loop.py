@@ -12,6 +12,21 @@ best checkpoints and faithful resume.
   after its checkpoint exactly as the uninterrupted run ran them.
 - A step never waits for the host: losses and accuracies stay on the device
   until the end of the epoch.
+
+Under a data-parallel mesh (fit(mesh=...), the JAX package's streaming
+branch) each rank holds only its host shard of the train split
+(loader.host_shard) and streams its local batches of batch_size / world
+rows from it (loader.stream_batches), each epoch permuted by the same
+epoch_rng(seed, e); an epoch has the smallest shard's number of steps, so
+every rank runs the same collectives. The step computes
+what the single process computes over the global batch (the ranks' local
+batches in rank order): global BatchNorm statistics and dropout masks
+(models/layers.py), augmentation drawn for the global batch with partner
+rows gathered from every rank, and gradients averaged over the ranks by one
+all-reduce of their concatenation before clipping. Train loss and accuracy
+are reduced over the ranks once an epoch; validation is replicated, rank
+0's metrics decide early stopping on every rank, and rank 0 writes the
+checkpoints.
 """
 from __future__ import annotations
 
@@ -25,8 +40,11 @@ from torch.profiler import record_function
 
 from tpu_breath_torch import augment
 from tpu_breath_torch.config import FeatureSpec, TrainCfg
+from tpu_breath_torch.data import loader
 from tpu_breath_torch.device import resolve_device
 from tpu_breath_torch.features import extract_features
+from tpu_breath_torch.models import layers
+from tpu_breath_torch.parallel import mesh as mesh_lib
 from tpu_breath_torch.train import checkpoint as ckpt_lib
 from tpu_breath_torch.train import metrics as metrics_mod
 from tpu_breath_torch.train.schedule import warmup_cosine
@@ -72,21 +90,37 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float
 
 def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                lr: float, batch: augment.Batch, cfg: TrainCfg,
-               draws: augment.AugDraw | None = None
+               draws: augment.AugDraw | None = None,
+               mesh: mesh_lib.Mesh | None = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """augment (when draws are given) -> forward -> BCE -> backward ->
     clip -> AdamW at rate lr. Returns (loss, train accuracy against the
-    original labels) as device scalars."""
+    original labels) as device scalars.
+
+    Under a mesh, batch is this rank's rows of the global batch and draws
+    are the global batch's: the partners are gathered from every rank, and
+    the gradients are averaged over the ranks before clipping (the model's
+    layers must point at the mesh: layers.set_mesh). Loss and accuracy are
+    this rank's."""
     model.train()
     labels = batch.labels
     if draws is not None:
+        partners = None
+        if mesh is not None and mesh.world > 1:
+            b = labels.shape[0]
+            partners = augment.Batch(*(mesh_lib.all_gather_rows(mesh, t)
+                                       for t in batch))
+            draws = augment.local_rows(
+                draws, slice(mesh.rank * b, (mesh.rank + 1) * b))
         batch = augment.apply_augmentation(batch, draws, cfg.cutmix_prob,
-                                           cfg.mixup_prob)
+                                           cfg.mixup_prob, partners)
     logits = model(batch.features, batch.scalars)
     loss = bce_with_logits(logits, batch.labels)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     grads = [p.grad for p in model.parameters() if p.grad is not None]
+    if mesh is not None:
+        mesh_lib.all_reduce_mean_(mesh, grads)
     clip_by_global_norm_(grads, cfg.grad_clip_norm)
     for group in optimizer.param_groups:
         group["lr"] = lr
@@ -125,9 +159,16 @@ def evaluate(model: nn.Module, feats: torch.Tensor, scals: torch.Tensor,
     return m
 
 
+def epoch_rng(seed: int, epoch: int) -> np.random.Generator:
+    """The generator of an epoch's batch order (the JAX package's,
+    loop.py:389): its permutation of the train split, or of a rank's
+    shard under a mesh."""
+    return np.random.default_rng([seed + 1, epoch])
+
+
 def epoch_permutation(seed: int, epoch: int, n: int) -> np.ndarray:
-    """The JAX package's batch order for an epoch (loop.py:389)."""
-    return np.random.default_rng([seed + 1, epoch]).permutation(n)
+    """The JAX package's batch order for an epoch."""
+    return epoch_rng(seed, epoch).permutation(n)
 
 
 def epoch_seeds(seed: int, epoch: int) -> tuple[int, int]:
@@ -157,18 +198,24 @@ def fused_features(wavs: torch.Tensor, spec: FeatureSpec, chunk: int = 128
 def fit(model: nn.Module, train_store, val_store, train_labels, val_labels,
         cfg: TrainCfg, save_dir: str | None = None, log_fn=print,
         resume: bool = False, device="cuda",
-        fused_spec: FeatureSpec | None = None) -> FitResult:
+        fused_spec: FeatureSpec | None = None,
+        mesh: mesh_lib.Mesh | None = None) -> FitResult:
     """Full training run with early stopping and best-checkpoint saves.
 
     train_store / val_store: (features [N, C, H, W], scalars [N, S]) numpy
-    arrays. Runs on `device` (the card unless device='cpu').
+    arrays. Runs on `device` (the card unless device='cpu'; under a mesh,
+    on the mesh's device).
 
     Fused mode (fused_spec given): train_store is (wavs [N, n_samples],
-    None), the wavs stay on the device, and each step computes its batch's
-    features with fused_features before the unchanged train_step; the
-    validation split stays precomputed. Batch order, augmentation and
-    dropout draws are the cached mode's."""
-    device = resolve_device(device)
+    None), and each step computes its batch's features with fused_features
+    before the unchanged train_step; the validation split stays
+    precomputed. Batch order, augmentation and dropout draws are the cached
+    mode's.
+
+    mesh: data parallelism (the module docstring); every rank passes the
+    whole split and keeps its host shard. Without a mesh the train split
+    lives on the device and a step gathers its batch by index."""
+    device = mesh.device if mesh is not None else resolve_device(device)
     n_train = len(train_labels)
     b = cfg.batch_size
     steps_per_epoch = n_train // b  # drop last
@@ -179,13 +226,37 @@ def fit(model: nn.Module, train_store, val_store, train_labels, val_labels,
         return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
             device)
 
-    if fused_spec is None:
+    if mesh is not None:
+        # this rank's host shard; an epoch has the smallest shard's steps
+        if b % mesh.world:
+            raise ValueError(f"batch_size ({b}) must be a multiple of the "
+                             f"mesh size ({mesh.world})")
+        local_batch = b // mesh.world
+        shard = loader.host_shard(n_train, mesh.rank, mesh.world)
+        host = [np.ascontiguousarray(np.asarray(a)[shard], np.float32)
+                for a in (train_store[0], train_labels)]
+        if fused_spec is None:
+            host.insert(1, np.ascontiguousarray(
+                np.asarray(train_store[1])[shard], np.float32))
+        per = -(-n_train // mesh.world)
+        min_shard = n_train - (mesh.world - 1) * per
+        steps_per_epoch = min_shard // local_batch
+        if steps_per_epoch < 1:
+            raise ValueError(
+                f"streaming layout needs one full batch on every rank: the "
+                f"smallest host shard has {max(min_shard, 0)} of {n_train} "
+                f"examples vs a local batch of {local_batch} "
+                f"({mesh.world} ranks)")
+    elif fused_spec is None:
         feats_tr, scals_tr = put(train_store[0]), put(train_store[1])
-        _, _, h, w = feats_tr.shape
     else:
         wavs_tr = put(train_store[0])
+    if fused_spec is None:
+        _, _, h, w = np.shape(train_store[0])
+    else:
         h, w = fused_spec.n_mels, fused_spec.t_fixed
-    labels_tr = put(train_labels)
+    if mesh is None:
+        labels_tr = put(train_labels)
     feats_va, scals_va = put(val_store[0]), put(val_store[1])
 
     model.to(device)
@@ -208,46 +279,65 @@ def fit(model: nn.Module, train_store, val_store, train_labels, val_labels,
                f"(best val acc {best_val_acc:.4f})")
     else:
         best_ckpt = None
+    mesh_lib.barrier(mesh)  # every rank has read the checkpoints
     best_weights = _snapshot(model)
     early_stop = 0
     history: list[dict] = []
     cuda_devices = [device.index or 0] if device.type == "cuda" else []
-
+    layers.set_mesh(model, mesh)  # None: each layer's own code
     for epoch in range(start_epoch, cfg.num_epochs):
         t0 = time.time()
         use_aug = epoch >= cfg.warmup_epochs
-        perm = torch.from_numpy(epoch_permutation(cfg.seed, epoch, n_train)
-                                ).to(device)
         aug_seed, drop_seed = epoch_seeds(cfg.seed, epoch)
         gen = torch.Generator(device=device).manual_seed(aug_seed)
+        if mesh is None:
+            perm = torch.from_numpy(epoch_permutation(
+                cfg.seed, epoch, n_train)).to(device)
+            batches = (perm[s * b:(s + 1) * b]
+                       for s in range(steps_per_epoch))
+        else:
+            batches = loader.stream_batches(
+                host, local_batch, epoch_rng(cfg.seed, epoch), depth=2,
+                device=device, max_batches=steps_per_epoch)
         losses, accs = [], []
         with torch.random.fork_rng(devices=cuda_devices):
             torch.manual_seed(drop_seed)  # dropout masks
-            for s in range(steps_per_epoch):
+            for item in batches:
                 # the ranges name a step's spans in a --profile trace
                 with record_function("train_step"):
-                    idx = perm[s * b:(s + 1) * b]
-                    if fused_spec is None:
-                        feats, scals = feats_tr[idx], scals_tr[idx]
-                    else:
+                    if mesh is not None:  # this rank's streamed rows
+                        x, labels = item[:-1], item[-1]
+                    elif fused_spec is None:
+                        x = (feats_tr[item], scals_tr[item])
+                    if fused_spec is not None:
                         with record_function("fused_features"):
-                            feats, scals = fused_features(wavs_tr[idx],
-                                                          fused_spec)
-                    batch = augment.Batch(feats, scals, labels_tr[idx])
+                            x = fused_features(
+                                x[0] if mesh is not None
+                                else wavs_tr[item], fused_spec)
+                    if mesh is None:
+                        labels = labels_tr[item]
+                    batch = augment.Batch(*x, labels)
                     draws = (augment.draw(gen, b, h, w, cfg.cutmix_alpha,
                                           cfg.mixup_alpha, device)
                              if use_aug else None)
-                    loss, acc = train_step(model, optimizer, schedule(step),
-                                           batch, cfg, draws)
+                    args = (model, optimizer, schedule(step), batch, cfg,
+                            draws)
+                    loss, acc = (train_step(*args) if mesh is None
+                                 else train_step(*args, mesh))
                 step += 1
                 losses.append(loss)
                 accs.append(acc)
-        train_loss = float(torch.stack(losses).double().mean())
-        train_acc = float(torch.stack(accs).double().mean())
+        means = torch.stack([torch.stack(losses).double().mean(),
+                             torch.stack(accs).double().mean()])
+        if mesh is not None:  # the global batch's means
+            mesh_lib.all_reduce_mean_(mesh, [means])
+        train_loss, train_acc = (float(v) for v in means)
 
         val = evaluate(model, feats_va, scals_va, val_labels,
                        cfg.eval_batch_size,
                        drop_last=cfg.parity_drop_last_eval)
+        if mesh is not None:  # one decision on every rank
+            val = mesh_lib.broadcast_object(mesh, val)
         row = {"epoch": epoch + 1, "train_loss": train_loss,
                "train_acc": train_acc, "val_loss": val["loss"],
                "val_acc": val["acc"], "val_auc": val["auc"],
@@ -270,16 +360,21 @@ def fit(model: nn.Module, train_store, val_store, train_labels, val_labels,
             best_weights = _snapshot(model)
             early_stop = 0
             if save_dir:
-                best_ckpt = ckpt_lib.save(
-                    save_dir, model, epoch + 1,
-                    {"val_acc": val["acc"], "val_loss": val["loss"]},
-                    optimizer=optimizer, step=step)
+                meta = {"val_acc": val["acc"], "val_loss": val["loss"]}
+                if mesh_lib.is_primary(mesh):
+                    best_ckpt = ckpt_lib.save(
+                        save_dir, model, epoch + 1, meta,
+                        optimizer=optimizer, step=step)
+                else:
+                    best_ckpt = ckpt_lib.epoch_dir(save_dir, epoch + 1)
+                mesh_lib.barrier(mesh)  # rank 0's files are whole
         else:
             early_stop += 1
             if early_stop >= cfg.patience:
                 log_fn(f"early stopping at epoch {epoch + 1} "
                        f"(best val acc {best_val_acc:.4f})")
                 break
+    layers.set_mesh(model, None)
 
     if cfg.restore_best_weights:
         model.load_state_dict(best_weights)

@@ -31,18 +31,18 @@ from tpu_breath_torch.ops.cuda import gammatone_kernel as gk
 
 SRC = os.path.join(_build.CSRC, "gammatone_kernel.cu")
 # the text each cut replaces, and what replaces it
-_DFT_END = "  cp_async_wait<0>();\n\n  // every block"
-_DFT_ONLY = """  cp_async_wait<0>();
-  {
-    double s = 0.0;
-    for (int a0 = 0; a0 < kRows / 16; ++a0)
-      for (int a1 = 0; a1 < 2; ++a1)
-        for (int a2 = 0; a2 < 4; ++a2) s += acc[a0][a1][a2];
-    out[static_cast<size_t>(blockIdx.y) * G * T +
-        (r * kThreads + threadIdx.x) % (G * T)] = static_cast<float>(s);
-    return;
-  }
-  // every block"""
+_DFT_END = "               T, K, K / kKT, fbs, fb, G, F);\n\n    // every block"
+_DFT_ONLY = """               T, K, K / kKT, fbs, fb, G, F);
+    {
+      double s = 0.0;
+      for (int a0 = 0; a0 < kRows / 16; ++a0)
+        for (int a1 = 0; a1 < 2; ++a1)
+          for (int a2 = 0; a2 < 4; ++a2) s += acc[a0][a1][a2];
+      out[static_cast<size_t>(clip) * G * T +
+          (r * kThreads + threadIdx.x) % (G * T)] = static_cast<float>(s);
+      return;
+    }
+    // every block"""
 _MMA = ("        mma_f64(acc[mt][0], af, br0, br1);\n"
         "        mma_f64(acc[mt][1], af, bi0, bi1);\n")
 # the fragments are still loaded and widened, and folded into acc by integer
@@ -152,7 +152,7 @@ def main() -> None:
             def run():
                 _build.check(lib.fused_gammatone_launch(
                     frames.data_ptr(), tiles.data_ptr(), fb.data_ptr(),
-                    out.data_ptr(), b, t, k, f, g,
+                    out.data_ptr(), None, b, t, k, f, g,
                     torch.cuda.current_stream().cuda_stream), name)
             run()
             torch.cuda.synchronize()

@@ -1,5 +1,6 @@
-"""Kernels B, B', B'', C and D of this checkout on the card: their times on
-two timers, and their outputs kept for comparing two checkouts bit for bit.
+"""Kernels A, B, B', B'', C and D of this checkout on the card: their times
+on two timers, and their outputs kept for comparing two checkouts bit for
+bit.
 
     python -m tpu_breath_torch.utils.kernel_times --out T.json [--save O.pt]
         [--kernels D "B'"]
@@ -151,11 +152,17 @@ def calls(x: dict, dense: torch.Tensor) -> dict:
     from tpu_breath_torch.ops.cuda import (cqt_kernel as ck,
                                            epilogue_kernel as ek,
                                            gammatone_kernel as gk,
-                                           peaks_kernel as pk)
+                                           peaks_kernel as pk,
+                                           tuning_kernel as tk)
 
     d = SR // 10
     rounds = SR // d + 2
     return {
+        # a feature call's two calls of kernel A, bpo 12 and 36
+        "A": tuple(lambda f=f: (f(x["p12"], x["m12"], 12),
+                                f(x["p36"], x["m36"], 36))
+                   for f in (tk.estimate_tuning_index,
+                             tk.estimate_tuning_index_plain)),
         "B": tuple(lambda f=f: f(x["mag"], x["fb"])
                    for f in (ek.fused_epilogue, ek.fused_epilogue_plain)),
         "B'": tuple(lambda f=f: f(x["mag"], x["fb"], plain=True)
