@@ -24,6 +24,14 @@ no result line):
   4. extract_features on the card for the golden wavs, against the golden
      npz and the port's CPU result; with fused_gt (kernel B'') against the
      default path;
+  parity. the parity sweep (utils/parity_sweep.py) on 512 seeded clips
+     (the golden wavs and shifts of them at seeded gains, silence, an
+     impulse, quantized plateaus, noise), 128 of them through the port's
+     NumPy oracle in spawned processes: run with kernel B and with B''
+     (fused_gt) against one oracle run; each holds the NaN masks equal, the
+     real clips with no tuning flip inside PARITY.md's envelope (every
+     channel <= 2.3e-4 abs, scalars <= 6.9e-4 rel, floor 1e-2) and no flip
+     wider than one count (tie width <= 1); A, B, B'', C must launch;
   5. serve: seeded CNN8 checkpoint, `predict --from-wav --archs cnn8` through
      cli.main on cuda; kernels A, B, C must launch;
   6. e2e on a seeded synthetic dataset (1,280 labelled clips -> 1,024 train /
@@ -54,7 +62,8 @@ no result line):
      serve micro-batch's median and p90 over 40 calls, one train step of
      CNN8 and of VGG at batch 512 (CUDA events), cached and fused
      (features and model apart), epoch wall times and precompute clips/s;
- 10. the kernels JSON line, then the last line: {"ok": true, "device": {...}}.
+ 10. the kernels JSON line (launches by path: serve, e2e, fused, mesh,
+     parity), then the last line: {"ok": true, "device": {...}}.
 
 With --cards N (N cards): phases 1 and 2, then the seeded dataset's
 precompute in one process and mesh_runs over N ranks, one a card over
@@ -494,6 +503,51 @@ def phase_features() -> None:
     log(f"[features] fused_gt (B'') vs default (B), B={CHUNK}: gammatone "
         f"max abs {gt_err:.3g} (bound 2e-4); other channels and scalars "
         f"equal")
+
+
+def phase_parity(smi: str) -> dict:
+    """The parity sweep on the card against the port's oracle, kernel B
+    and kernel B'' (see the module docstring). Returns the phase's
+    launches."""
+    from tpu_breath_torch.utils import parity_sweep
+
+    wavs, ids, synthetic = parity_sweep.seeded_clips(512, seed=0)
+    reset_launches()
+    t0 = time.perf_counter()
+    reports = parity_sweep.sweeps(wavs, ids, 128, seed=0, device="cuda",
+                                  fused_gts=(False, True),
+                                  synthetic=synthetic)
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    misses = {}
+    for rep in reports:
+        kernel = "B''" if rep["fused_gt"] else "B"
+
+        def worst(key):
+            return {k: None if v is None else v["max"]
+                    for k, v in rep[key].items()}
+        log(f"[parity] {kernel}: {rep['n_total']} clips, "
+            f"{rep['n_oracle_sampled']} through the oracle "
+            f"({rep['n_oracle_synthetic']} synthetic); real clips with no "
+            f"flip: max abs by channel "
+            f"{worst('channel_max_abs_err_unflipped')} (bound 2.3e-4), "
+            f"scalars {rep['scalar_max_rel_err_unflipped']} (max rel, "
+            f"bound 6.9e-4); synthetic: max abs "
+            f"{worst('channel_max_abs_err_synthetic')}, scalars "
+            f"{rep['scalar_max_rel_err_synthetic']}; flips "
+            f"{rep['tuning_flips']}; NaN-mask mismatches "
+            f"{rep['nan_mask_mismatches']}; oracle "
+            f"{rep['oracle_clips_per_s']:.3f} clips/s a process "
+            f"({rep['oracle_workers']} processes, {rep['oracle_wall_s']:.2f} "
+            f"s wall); {smi}")
+        log(f"[parity] {kernel} report {json.dumps(rep)}")
+        misses[kernel] = parity_sweep.envelope_misses(rep)
+    log(f"[parity] sweep {seconds:.2f} s; launches {launches}")
+    if any(misses.values()):
+        raise AssertionError(f"parity sweep misses the envelope: {misses}")
+    if min(launches[k] for k in ("A", "B", "B''", "C")) <= 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    return {"launches": launches}
 
 
 def _nan_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -1340,6 +1394,7 @@ def main(argv: list[str] | None = None) -> int:
         return 0
     ker = phase_kernels()
     phase_features()
+    parity = phase_parity(env["smi"])
     with tempfile.TemporaryDirectory() as tmp:
         serve = phase_serve(tmp)
         e2e = phase_e2e(tmp)
@@ -1364,7 +1419,8 @@ def main(argv: list[str] | None = None) -> int:
     # precompute chunk (B = 128). No single PyTorch call computes A-C;
     # D's library time is conv1d's (its complex response, no |.|)
     paths = {"serve": serve["launches"], "e2e": e2e["launches"],
-             "fused": fused["launches"], "mesh": mesh["launches"]}
+             "fused": fused["launches"], "mesh": mesh["launches"],
+             "parity": parity["launches"]}
     kernels = [{"name": name, "route": "cuda", "source": f"{src}/{f}",
                 "replaces": f"{pallas}/{rep}",
                 "launches": sum(p[k] for p in paths.values()),

@@ -813,3 +813,30 @@ def test_fused_step_does_not_wait_for_the_host(clips, monkeypatch):
         k in e.name for k in ("StreamSynchronize", "EventSynchronize",
                               "HtoD", "DtoH"))})
     assert not waits, waits
+
+
+def test_rolloff_on_the_card_is_the_oracles():
+    """The rolloff's 85% crossing on the card is the oracle's, frame for
+    frame, on the two shifted golden wavs where the card's f32 running sum
+    had moved it by a bin (the parity sweep's scalar 14; it sums in
+    float64 now), and on the near tie of the CPU test."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpu_breath_torch.baseline import dsp_np
+    from tpu_breath_torch.ops import scalars, spectral
+    from tpu_breath_torch.utils import parity_sweep
+
+    wavs, ids, _ = parity_sweep.seeded_clips(512, seed=0)
+    rows = [ids.index(n) for n in ("golden0_shift13632_gain0.754",
+                                   "golden0_shift4681_gain0.495")]
+    y = torch.from_numpy(wavs[rows]).cuda()
+    S = spectral.stft_mag(y, 2048, 512)
+    got = scalars.spectral_rolloff(S, 16000, 2048).cpu().numpy()
+    for r, row in enumerate(rows):
+        S_o = np.abs(dsp_np.stft(wavs[row].astype(np.float64), 2048, 512))
+        want = dsp_np.spectral_rolloff(S_o, 16000, 2048)
+        np.testing.assert_array_equal(got[r], want.astype(np.float32))
+    near = np.zeros((1, 1025, 1), np.float32)
+    near[0, 0, 0], near[0, 5, 0] = np.float32(17 / 3), 1.0
+    got = scalars.spectral_rolloff(torch.from_numpy(near).cuda(), 16000, 2048)
+    assert got.item() == 5 * 16000 / 2048

@@ -16,7 +16,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from tpu_breath.baseline import feature_np
+from tpu_breath.baseline import dsp_np as jx_dsp, feature_np
 from tpu_breath.config import DEFAULT_FEATURES as SPEC
 from tpu_breath.features import extract_features as jx_extract
 from tpu_breath.ops import cepstral as jx_cepstral, cqt as jx_cqt
@@ -232,3 +232,18 @@ def test_extract_scalars_standalone(y2):
     rel = np.abs(got.numpy() - np.asarray(ref)) / np.maximum(
         np.abs(np.asarray(ref)), 1e-2)
     assert rel.max() <= 5e-4, (rel.argmax(), rel.max())
+
+
+def test_rolloff_crossing_is_the_oracles_on_a_near_tie():
+    """The 85% roll-off sums in float64, as the oracle does: in column 0,
+    f32(17/3) lies under 0.85 (x + 1) in float64 but not in f32, so an f32
+    running sum put the crossing at bin 0 where the oracle puts it at bin
+    5 (the card's f32 scan moved real clips' crossings so; see
+    utils/parity_sweep.py). Column 1 has no near tie."""
+    S = np.zeros((1025, 2), np.float32)
+    S[0, 0], S[5, 0] = np.float32(17 / 3), 1.0
+    S[3, 1], S[40, 1] = 2.0, 1.0
+    got = scalars.spectral_rolloff(torch.from_numpy(S)[None], 16000, 2048)
+    want = jx_dsp.spectral_rolloff(S.astype(np.float64), 16000, 2048)
+    np.testing.assert_array_equal(got.numpy()[0], want.astype(np.float32))
+    assert want[0] == 5 * 16000 / 2048

@@ -31,7 +31,8 @@ print(len(names))
 # every module of the port, so a new one cannot slip past the import check
 MODULES = {
     "augment", "cli", "config", "device", "ensemble", "features",
-    "__main__", "baseline", "baseline.dsp_np", "data", "data.dataset",
+    "__main__", "baseline", "baseline.dsp_np", "baseline.feature_np",
+    "data", "data.dataset",
     "data.wav", "models", "models.cnn8", "models.convert", "models.layers",
     "models.registry", "models.vgg", "ops", "ops.cepstral", "ops.chroma",
     "ops.cqt", "ops.cuda", "ops.cuda._build", "ops.cuda.cqt_kernel",
@@ -42,7 +43,7 @@ MODULES = {
     "parallel", "parallel.mesh", "data.loader", "train",
     "train.checkpoint", "train.loop", "train.metrics", "train.schedule",
     "utils", "utils.gammatone_breakdown", "utils.kernel_times",
-    "utils.path_times", "utils.profiling",
+    "utils.parity_sweep", "utils.path_times", "utils.profiling",
 }
 
 

@@ -69,14 +69,7 @@ def _build_feature_store(paths: Paths, spec: FeatureSpec, device,
     every rank holding the whole store). Returns (store, decoded wavs)."""
     from tpu_breath_torch.features import extract_features_batched
 
-    train_rows, test_rows = ds.load_frames(paths)
-    ids = [r["ID"] for r in train_rows] + [r["ID"] for r in test_rows]
-    wav_paths = ([os.path.join(paths.train_audio_dir,
-                               ds.train_wav_name(r["ID"]))
-                  for r in train_rows]
-                 + [os.path.join(paths.test_audio_dir,
-                                 ds.test_wav_name(r["ID"]))
-                    for r in test_rows])
+    ids, wav_paths = ds.dataset_wavs(paths)
     print(f"decoding {len(wav_paths)} wavs", flush=True)
     t0 = time.time()
     errors: list = []

@@ -43,6 +43,17 @@ def load_frames(paths: Paths) -> tuple[list[dict], list[dict]]:
     return _read_csv(paths.train_csv), _read_csv(paths.test_csv)
 
 
+def dataset_wavs(paths: Paths) -> tuple[list[str], list[str]]:
+    """(IDs, wav paths) of the train clips, then the test clips."""
+    train_rows, test_rows = load_frames(paths)
+    ids = [r["ID"] for r in train_rows] + [r["ID"] for r in test_rows]
+    wav_paths = ([os.path.join(paths.train_audio_dir, train_wav_name(r["ID"]))
+                  for r in train_rows]
+                 + [os.path.join(paths.test_audio_dir, test_wav_name(r["ID"]))
+                    for r in test_rows])
+    return ids, wav_paths
+
+
 def split_train_val(rows: list, test_size: float = 0.20, seed: int = 42
                     ) -> tuple[list, list]:
     """sklearn's train_test_split(rows, test_size=0.2, shuffle=True,

@@ -128,14 +128,15 @@ def _extract(y: torch.Tensor, spec: FeatureSpec, fused_gt: bool
 
 def extract_features_batched(wavs: np.ndarray,
                              spec: FeatureSpec = DEFAULT_FEATURES,
-                             chunk: int = 128, device="cuda", mesh=None
+                             chunk: int = 128, device="cuda", mesh=None,
+                             fused_gt: bool | None = None
                              ) -> tuple[np.ndarray, np.ndarray]:
     """wavs[N, 16000] -> numpy (features [N, 9, 128, 63], scalars [N, 36]),
     in chunks of `chunk` clips on `device`; under a data-parallel mesh
     (parallel/mesh.py) the ranks share the chunks (_extract_sharded) and
-    every rank returns the whole arrays."""
+    every rank returns the whole arrays. fused_gt as extract_features."""
     if mesh is not None:
-        return _extract_sharded(wavs, spec, chunk, mesh)
+        return _extract_sharded(wavs, spec, chunk, mesh, fused_gt)
     device = resolve_device(device)
     n = wavs.shape[0]
     feats_out = np.empty((n, spec.n_channels, spec.n_mels, spec.t_fixed),
@@ -144,14 +145,15 @@ def extract_features_batched(wavs: np.ndarray,
     for lo in range(0, n, chunk):
         hi = min(lo + chunk, n)
         y = torch.from_numpy(np.ascontiguousarray(wavs[lo:hi], np.float32))
-        f, s = extract_features(y.to(device), spec)
+        f, s = extract_features(y.to(device), spec, fused_gt)
         feats_out[lo:hi] = f.cpu().numpy()
         scal_out[lo:hi] = s.cpu().numpy()
     return feats_out, scal_out
 
 
 def _extract_sharded(wavs: np.ndarray, spec: FeatureSpec, chunk: int,
-                     mesh) -> tuple[np.ndarray, np.ndarray]:
+                     mesh, fused_gt: bool | None
+                     ) -> tuple[np.ndarray, np.ndarray]:
     """Data-parallel extraction (tpu_breath/features.py::_extract_sharded):
     every rank holds all the wavs; a super-chunk is mesh.world * chunk
     clips (the last one padded with silence, so the geometry stays fixed),
@@ -171,7 +173,8 @@ def _extract_sharded(wavs: np.ndarray, spec: FeatureSpec, chunk: int,
         part = wavs[lo + mesh.rank * chunk:min(lo + (mesh.rank + 1) * chunk,
                                                hi)]
         mine[:len(part)] = part
-        f, s = extract_features(torch.from_numpy(mine).to(mesh.device), spec)
+        f, s = extract_features(torch.from_numpy(mine).to(mesh.device), spec,
+                                fused_gt)
         feats_out[lo:hi] = mesh_lib.all_gather_rows(mesh, f).cpu().numpy()[
             :hi - lo]
         scal_out[lo:hi] = mesh_lib.all_gather_rows(mesh, s).cpu().numpy()[

@@ -83,9 +83,14 @@ def spectral_bandwidth(S: torch.Tensor, sr: int, n_fft: int) -> torch.Tensor:
 
 
 def spectral_rolloff(S: torch.Tensor, sr: int, n_fft: int) -> torch.Tensor:
-    """85% roll-off frequency."""
+    """85% roll-off frequency. The running sum is float64, as the oracle's:
+    in f32 its rounding moves a frame's crossing by a bin where a partial
+    sum lies within ~1e-6 of the threshold, and the card's parallel scan
+    rounds otherwise than a sequential one (on an H100 the std of the
+    rolloff, scalar 14, then missed the oracle by 1.3e-3 rel on real
+    clips)."""
     freq = spectral.device_const(_freqs, sr, n_fft, device=S.device)
-    total = torch.cumsum(S, dim=-2)
+    total = torch.cumsum(S.double(), dim=-2)
     threshold = 0.85 * total[..., -1:, :]
     return torch.amin(torch.where(total < threshold, torch.inf, freq), dim=-2)
 
