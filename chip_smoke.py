@@ -58,12 +58,17 @@ no result line):
   8. profile: precompute --profile (stages, slowest first) and train
      --fused --archs cnn8 --epochs 2 --profile (the top device operations
      of the fused steps, from the trace);
+  bench. the port's bench (tpu_breath_torch/bench.py) at its defaults
+     (2,048 seeded clips, chunk 128, batch 512, 8 steps, 24 oracle clips,
+     5 repeats): its line printed as {"bench": ...}; every rate and latency
+     finite and positive, every MFU in (0, 1], the fused CNN8 step's
+     clips/s at most the feature graph's alone; A, C and B launched;
   9. timings: extract_features (B = 8 / 128), one serve call and the
      serve micro-batch's median and p90 over 40 calls, one train step of
      CNN8 and of VGG at batch 512 (CUDA events), cached and fused
      (features and model apart), epoch wall times and precompute clips/s;
  10. the kernels JSON line (launches by path: serve, e2e, fused, mesh,
-     parity), then the last line: {"ok": true, "device": {...}}.
+     parity, bench), then the last line: {"ok": true, "device": {...}}.
 
 With --cards N (N cards): phases 1 and 2, then the seeded dataset's
 precompute in one process and mesh_runs over N ranks, one a card over
@@ -1292,6 +1297,63 @@ def phase_profile(tmp: str) -> None:
             f"{len(mine) / n_steps:.0f} launches/step")
 
 
+def phase_bench(smi: str) -> dict:
+    """The port's bench (tpu_breath_torch/bench.py) at its defaults, in
+    this process: its line printed as {"bench": ...}. Fails unless every
+    rate and latency is finite and positive, every MFU lies in (0, 1], the
+    fused step's clips/s is at most the feature graph's alone (it does
+    strictly more a clip), and A, C and B or B'' launched on its path.
+    Returns the phase's launches."""
+    from tpu_breath_torch import bench
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):  # the line, printed below
+        line = bench.main([])
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    print(json.dumps({"bench": line}), flush=True)
+    split = line["split"]
+    rates = {k: line[k] for k in ("value", "feature_only_clips_per_s",
+                                  "vgg_fused_clips_per_s",
+                                  "cpu_oracle_clips_per_s")}
+    rates.update({f"serve B={b} {q}": v[q]
+                  for b, v in line["serve_ms"].items()
+                  for q in ("median", "p90")})
+    rates.update({f"{arch} {name} {k}": row[k]
+                  for arch, pieces in split.items()
+                  for name, row in pieces.items()
+                  if isinstance(row, dict) and "mfu" in row
+                  for k in ("ms", "clips_per_s")})
+    rates.update({f"{arch} cached B={b}": row["ms"]
+                  for arch, pieces in split.items()
+                  for b, row in pieces["cached_batch_sweep"].items()})
+    mfus = {k: line[k] for k in ("feature_mfu", "fused_train_mfu",
+                                 "vgg_fused_train_mfu")}
+    mfus.update({f"{arch} {name}": row["mfu"]
+                 for arch, pieces in split.items()
+                 for name, row in pieces.items()
+                 if isinstance(row, dict) and "mfu" in row})
+    log(f"[bench] bench.main at its defaults: {seconds:.1f} s; value "
+        f"{line['value']:.1f} clips/s, feature only "
+        f"{line['feature_only_clips_per_s']:.1f}, serve B=8 median "
+        f"{line['serve_ms']['8']['median']:.2f} ms; launches {launches}; "
+        f"{smi}")
+    bad = [k for k, v in rates.items()
+           if v is None or not (np.isfinite(v) and v > 0)]
+    bad += [k for k, v in mfus.items()
+            if v is None or not (np.isfinite(v) and 0 < v <= 1)]
+    if bad:
+        raise AssertionError(f"bench: out of range: {bad}")
+    if not line["value"] <= line["feature_only_clips_per_s"]:
+        raise AssertionError(f"bench: fused {line['value']} clips/s above "
+                             f"the features alone")
+    if min(launches["A"], launches["C"],
+           max(launches["B"], launches["B''"])) <= 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    return {"launches": launches}
+
+
 def phase_times(serve: dict, e2e: dict, fused: dict) -> None:
     from tpu_breath_torch import augment, ensemble
     from tpu_breath_torch.config import CNN8_TRAIN, DEFAULT_FEATURES, VGG_TRAIN
@@ -1401,6 +1463,7 @@ def main(argv: list[str] | None = None) -> int:
         fused = phase_fused(tmp)
         mesh = phase_mesh(tmp, env["smi"])
         phase_profile(tmp)
+        bench = phase_bench(env["smi"])
         phase_times(serve, e2e, fused)
     src = "tpu_breath_torch/csrc"
     pallas = "tpu_breath/ops/pallas"
@@ -1420,7 +1483,7 @@ def main(argv: list[str] | None = None) -> int:
     # D's library time is conv1d's (its complex response, no |.|)
     paths = {"serve": serve["launches"], "e2e": e2e["launches"],
              "fused": fused["launches"], "mesh": mesh["launches"],
-             "parity": parity["launches"]}
+             "parity": parity["launches"], "bench": bench["launches"]}
     kernels = [{"name": name, "route": "cuda", "source": f"{src}/{f}",
                 "replaces": f"{pallas}/{rep}",
                 "launches": sum(p[k] for p in paths.values()),

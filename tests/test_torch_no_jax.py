@@ -42,7 +42,7 @@ MODULES = {
     "ops.rhythm", "ops.scalars", "ops.select", "ops.spectral",
     "parallel", "parallel.mesh", "data.loader", "train",
     "train.checkpoint", "train.loop", "train.metrics", "train.schedule",
-    "utils", "utils.gammatone_breakdown", "utils.kernel_times",
+    "bench", "utils", "utils.gammatone_breakdown", "utils.kernel_times",
     "utils.parity_sweep", "utils.path_times", "utils.profiling",
 }
 

@@ -195,6 +195,35 @@ def fused_features(wavs: torch.Tensor, spec: FeatureSpec, chunk: int = 128
     return extract_features(wavs, spec)
 
 
+def fit_step(model: nn.Module, optimizer: torch.optim.Optimizer, lr: float,
+             data: tuple, rows: torch.Tensor | None, cfg: TrainCfg,
+             gen: torch.Generator, use_aug: bool,
+             fused_spec: FeatureSpec | None = None,
+             mesh: mesh_lib.Mesh | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One step of fit on the rows `rows` of data (rows None: data are the
+    batch): data is (features, scalars, labels), or in fused mode (wavs,
+    labels) and fused_features turns the wavs into features and scalars;
+    then the augmentation of the global batch (cfg.batch_size rows) drawn
+    from gen when use_aug, and train_step at rate lr. Returns train_step's
+    (loss, accuracy)."""
+    def take(t):
+        return t if rows is None else t[rows]
+    *x, labels = data
+    if fused_spec is not None:
+        with record_function("fused_features"):  # the gather included
+            x = fused_features(take(x[0]), fused_spec)
+    else:
+        x = [take(t) for t in x]
+    batch = augment.Batch(*x, take(labels))
+    _, _, h, w = batch.features.shape
+    draws = (augment.draw(gen, cfg.batch_size, h, w, cfg.cutmix_alpha,
+                          cfg.mixup_alpha, batch.labels.device)
+             if use_aug else None)
+    args = (model, optimizer, lr, batch, cfg, draws)
+    return train_step(*args) if mesh is None else train_step(*args, mesh)
+
+
 def fit(model: nn.Module, train_store, val_store, train_labels, val_labels,
         cfg: TrainCfg, save_dir: str | None = None, log_fn=print,
         resume: bool = False, device="cuda",
@@ -247,16 +276,11 @@ def fit(model: nn.Module, train_store, val_store, train_labels, val_labels,
                 f"smallest host shard has {max(min_shard, 0)} of {n_train} "
                 f"examples vs a local batch of {local_batch} "
                 f"({mesh.world} ranks)")
-    elif fused_spec is None:
-        feats_tr, scals_tr = put(train_store[0]), put(train_store[1])
-    else:
-        wavs_tr = put(train_store[0])
-    if fused_spec is None:
-        _, _, h, w = np.shape(train_store[0])
-    else:
-        h, w = fused_spec.n_mels, fused_spec.t_fixed
-    if mesh is None:
-        labels_tr = put(train_labels)
+    elif fused_spec is None:  # (features, scalars, labels) on the device
+        train_tr = (put(train_store[0]), put(train_store[1]),
+                    put(train_labels))
+    else:  # (wavs, labels)
+        train_tr = (put(train_store[0]), put(train_labels))
     feats_va, scals_va = put(val_store[0]), put(val_store[1])
 
     model.to(device)
@@ -305,25 +329,12 @@ def fit(model: nn.Module, train_store, val_store, train_labels, val_labels,
             for item in batches:
                 # the ranges name a step's spans in a --profile trace
                 with record_function("train_step"):
-                    if mesh is not None:  # this rank's streamed rows
-                        x, labels = item[:-1], item[-1]
-                    elif fused_spec is None:
-                        x = (feats_tr[item], scals_tr[item])
-                    if fused_spec is not None:
-                        with record_function("fused_features"):
-                            x = fused_features(
-                                x[0] if mesh is not None
-                                else wavs_tr[item], fused_spec)
-                    if mesh is None:
-                        labels = labels_tr[item]
-                    batch = augment.Batch(*x, labels)
-                    draws = (augment.draw(gen, b, h, w, cfg.cutmix_alpha,
-                                          cfg.mixup_alpha, device)
-                             if use_aug else None)
-                    args = (model, optimizer, schedule(step), batch, cfg,
-                            draws)
-                    loss, acc = (train_step(*args) if mesh is None
-                                 else train_step(*args, mesh))
+                    # this rank's streamed rows, or rows of the split
+                    data, rows = ((item, None) if mesh is not None
+                                  else (train_tr, item))
+                    loss, acc = fit_step(model, optimizer, schedule(step),
+                                         data, rows, cfg, gen, use_aug,
+                                         fused_spec, mesh)
                 step += 1
                 losses.append(loss)
                 accs.append(acc)

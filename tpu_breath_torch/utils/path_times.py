@@ -67,18 +67,33 @@ def host_ms(fn, n: int, warmup: int, device) -> list[float]:
     return out
 
 
+def serve_models(archs, device) -> list[torch.nn.Module]:
+    """The models of archs in eval mode on device, random weights from seed
+    0 (serving time depends on the shapes, not the weights)."""
+    return [registry.build(a, DEFAULT_FEATURES.n_scalars, seed=0)
+            .to(device).eval() for a in archs]
+
+
 @torch.no_grad()
+def serve_call(models, weights, wavs: np.ndarray, device) -> np.ndarray:
+    """One serving request: a wav array [B, 16000] on the host -> features
+    on device -> every model -> sum_m weights[m] * sigmoid(logits_m) ->
+    probabilities [B] (f32) on the host."""
+    f, s = extract_features(torch.from_numpy(wavs).to(device),
+                            DEFAULT_FEATURES)
+    p = torch.zeros(wavs.shape[0], device=device)
+    for model, w in zip(models, weights):
+        p = p + float(w) * torch.sigmoid(model(f, s))
+    return p.float().cpu().numpy()
+
+
 def serve_ms(device, reps: int, micro: int = 8, warmup: int = 5
              ) -> list[float]:
-    """ms of one serving micro-batch, wav array -> probabilities."""
-    spec = DEFAULT_FEATURES
-    model = registry.build("cnn8", spec.n_scalars, seed=0).to(device).eval()
+    """ms of one serving micro-batch, wav array -> CNN8 -> probabilities."""
+    models = serve_models(("cnn8",), device)
     wavs = clips(micro, seed=1)
-
-    def call():
-        f, s = extract_features(torch.from_numpy(wavs).to(device), spec)
-        return torch.sigmoid(model(f, s)).float().cpu().numpy()
-    return host_ms(call, reps, warmup, device)
+    return host_ms(lambda: serve_call(models, (1.0,), wavs, device), reps,
+                   warmup, device)
 
 
 @torch.no_grad()
