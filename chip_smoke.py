@@ -63,12 +63,21 @@ no result line):
      5 repeats): its line printed as {"bench": ...}; every rate and latency
      finite and positive, every MFU in (0, 1], the fused CNN8 step's
      clips/s at most the feature graph's alone; A, C and B launched;
+  tools. the port's tools (tpu_breath_torch/utils): the feature roofline
+     at its defaults (2,048 seeded clips, chunks of 128), its report printed
+     as {"roofline": ...}: shares in (0, 1.05], known bounds, `full`'s
+     FLOPs the bench's count, bytes counted alike on the card and the CPU,
+     A, C and B launched; seed_sweep (cnn8, seeds 0 and 1, cached and
+     fused, 2 epochs) on phase 6's dataset and summarize, agreeing;
+     ensemble_val on phase 6's checkpoints; deviation_sweep folded into a
+     parity sweep by --deviations; find_flips on the parity phase's clips;
   9. timings: extract_features (B = 8 / 128), one serve call and the
      serve micro-batch's median and p90 over 40 calls, one train step of
      CNN8 and of VGG at batch 512 (CUDA events), cached and fused
      (features and model apart), epoch wall times and precompute clips/s;
  10. the kernels JSON line (launches by path: serve, e2e, fused, mesh,
-     parity, bench), then the last line: {"ok": true, "device": {...}}.
+     parity, bench, tools), then the last line: {"ok": true, "device":
+     {...}}.
 
 With --cards N (N cards): phases 1 and 2, then the seeded dataset's
 precompute in one process and mesh_runs over N ranks, one a card over
@@ -94,6 +103,7 @@ import wave
 import numpy as np
 import torch
 
+from tpu_breath_torch.ops.cuda import work as work_lib
 from tpu_breath_torch.utils.kernel_times import calls as kernel_calls
 from tpu_breath_torch.utils.kernel_times import (clip_set, cqt_args, cuda_ms,
                                                  dense_scores, golden,
@@ -103,11 +113,6 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SR = 16000
 MICRO = 8
 CHUNK = 128
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 CUDA-core FLOP/s,
-# f64 tensor-core FLOP/s (the card's fastest float64 rate)
-HBM_BPS = 3.35e12
-F32_FLOPS = 67e12
-F64_FLOPS = 67e12
 # kernel -> max abs err against its plain version: the JAX package's test
 # tolerances (tests/test_pallas_epilogue.py), 1e-5 for the float64
 # variants, 5e-5 for the f32 one
@@ -156,50 +161,24 @@ def phase_build() -> None:
 
 
 def bounds(x: dict, rounds: int) -> dict:
-    """kernel -> (bound_ms, bound_by): the larger of the bytes each input
-    read once and each output written once over HBM_BPS, and the
-    operations over the peak rate of their type, at these inputs. For D
-    the work is what the function needs: 2 (re, im) FMAs of 2 operations
-    for each frame and bank entry inside the bin's nonzero window whose
-    sample of ypad lies in the clip (the rest multiply zeros of ypad's
-    padding), the nonzero entries read once (re and im f32)."""
-    from tpu_breath_torch.ops.cuda import cqt_kernel as ck
-
-    sr, hop, fmin, n_bins, bpo = cqt_args()
-    win = ck.bank_windows(sr, fmin, n_bins, bpo).astype(np.int64)
-    nnz = int((win[:, 1] - win[:, 0]).sum())
-    half, n = ck._kernel_bank(sr, fmin, n_bins, bpo)[2], x["y"].shape[-1]
-    starts = half - hop * np.arange(1 + n // hop)[:, None]  # [T, 1]
-    terms = int(np.clip(np.minimum(win[:, 1], starts + n)
-                        - np.maximum(win[:, 0], starts), 0, None).sum())
-    b = x["mag"].shape[0]
-    f, t = x["mag"].shape[1:]
+    """kernel -> (bound_ms, bound_by) at these inputs, by the package's
+    model of each kernel's least work (ops/cuda/work.py): the larger of the
+    bytes each input read once and each output written once over the
+    card's HBM rate, and the operations over the peak rate of their type.
+    A is its two calls (bpo 12 and 36); C makes `rounds` passes."""
+    b, f, t = x["mag"].shape
     g = x["fb"].shape[0]
     k = x["frames"].shape[-1]
-    nb = lambda *ts: sum(v.numel() * v.element_size() for v in ts)
-    gt_out = b * g * t * 4
-    epi_flops = 2 * b * g * f * t
-    work = {  # bytes, (flops, peak)
-        # A: one compare per input element (the histogram and median work
-        # is smaller still); two calls (bpo 12 and 36)
-        "A": (nb(x["p12"], x["m12"], x["p36"], x["m36"]) + 2 * b * 4,
-              (x["p12"].numel() + x["p36"].numel(), F32_FLOPS)),
-        "B": (nb(x["mag"], x["fb"]) + gt_out, (epi_flops, F64_FLOPS)),
-        "B'": (nb(x["mag"], x["fb"]) + gt_out, (epi_flops, F32_FLOPS)),
-        "B''": (nb(x["frames"], x["basis"], x["fb"]) + gt_out,
-                (2 * b * t * k * 2 * (f) + epi_flops, F64_FLOPS)),
-        # C: `rounds` passes of one compare per score
-        "C": (nb(x["scores"]) + b * rounds * 5,  # f32 vals + uint8 kept
-              (rounds * x["scores"].numel(), F32_FLOPS)),
-        "D": (nb(x["y"]) + nnz * 8 + b * n_bins * t * 4,
-              (2 * 2 * terms * b, F32_FLOPS)),
+    pairs = [x[p][0].numel() for p in ("p12", "p36")]
+    work = {
+        "A": work_lib.tuning(b, pairs[0]) + work_lib.tuning(b, pairs[1]),
+        "B": work_lib.epilogue(b, f, t, g),
+        "B'": work_lib.epilogue(b, f, t, g, plain=True),
+        "B''": work_lib.gammatone(b, t, k, f, g),
+        "C": work_lib.peaks(b, x["scores"].shape[-1], rounds),
+        "D": work_lib.cqt(b, x["y"].shape[-1], *cqt_args()),
     }
-    out = {}
-    for name, (nbytes, (flops, peak)) in work.items():
-        t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / peak * 1e3
-        out[name] = ((t_bytes, "bytes") if t_bytes >= t_ops
-                     else (t_ops, "operations"))
-    return out
+    return {name: w.bound_ms() for name, w in work.items()}
 
 
 def phase_kernels() -> dict:
@@ -1354,6 +1333,164 @@ def phase_bench(smi: str) -> dict:
     return {"launches": launches}
 
 
+def quiet(fn, *args):
+    """fn(*args) with its stdout captured; (result, captured text)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = fn(*args)
+    return res, out.getvalue()
+
+
+def phase_tools(tmp: str, smi: str) -> dict:
+    """The port's tools (tpu_breath_torch/utils) on the card: (a) the
+    feature roofline at its defaults, its report printed as {"roofline":
+    ...}: every share in (0, 1.05] (a FLOP share exactly 0 where a stage
+    counts no FLOPs), every bound one of the three, `full`'s FLOPs
+    bench.feature_flops(128), each stage's bytes and kernel calls at B = 8
+    the same counted on the card as on the CPU, A, C and B or B'' launched;
+    (b) seed_sweep (cnn8, seeds 0 and 1, cached and fused, 2 epochs) on
+    phase 6's dataset, then summarize on its directory: the two summaries
+    agree on every key both hold; (c) ensemble_val on phase 6's CNN8 and
+    VGG checkpoints: weights summing to 1, every metric in [0, 1]; (d)
+    deviation_sweep (8 resampled clips) on phase 6's dataset, folded into a
+    parity sweep (64 seeded clips, 16 through the oracle) by --deviations,
+    inside the envelope; (e) find_flips on the parity phase's 512 clips:
+    the flip count, and each flip's diagnose(). Returns the launches."""
+    from tpu_breath_torch import bench, cli
+    from tpu_breath_torch.train import checkpoint as ckpt_lib
+    from tpu_breath_torch.utils import (deviation_sweep, ensemble_val,
+                                        feature_roofline, flip_hunt,
+                                        parity_sweep, profiling, seed_sweep)
+
+    root = os.path.join(tmp, "input")
+    times = {}
+    reset_launches()
+    t_phase = t0 = time.perf_counter()
+    # (a) the roofline
+    report, _ = quiet(feature_roofline.main, [])
+    times["roofline"] = time.perf_counter() - t0
+    launches = read_launches()
+    print(json.dumps({"roofline": report}), flush=True)
+    stages = report["stages"]
+    bad = [(name, k, row[k]) for name, row in stages.items()
+           for k in ("flop_frac", "hbm_frac")
+           if not (0 < row[k] <= 1.05 or (k == "flop_frac"
+                                          and row["flops_per_chunk"] == 0
+                                          and row[k] == 0))]
+    bad += [(name, "bound", row["bound"]) for name, row in stages.items()
+            if row["bound"] not in feature_roofline.BOUNDS]
+    want = bench.feature_flops(report["chunk"])
+    if stages["full"]["flops_per_chunk"] != want:
+        bad.append(("full", "flops_per_chunk",
+                    (stages["full"]["flops_per_chunk"], want)))
+    y = torch.from_numpy(bench.noise(MICRO))
+    for name, fn in profiling.feature_stages().items():
+        on_card, on_cpu = (feature_roofline.count(fn, v)
+                           for v in (y.cuda(), y))
+        for k in ("bytes", "kernel_calls"):
+            if on_card[k] != on_cpu[k]:
+                bad.append((name, f"{k} card != cpu", (on_card[k],
+                                                       on_cpu[k])))
+    log(f"[tools] (a) roofline, {report['n_clips']} clips in chunks of "
+        f"{report['chunk']} ({report['timer']}; {report['device']}): "
+        + "; ".join(f"{n} {r['wall_ms']:.2f} ms, flop {r['flop_frac']:.3g},"
+                    f" op traffic {r['hbm_frac']:.3g}, {r['bound']}"
+                    for n, r in stages.items())
+        + f"; full's FLOPs a chunk = bench.feature_flops({report['chunk']})"
+        f" = {want}; bytes and kernel calls at B = {MICRO} the same on the "
+        f"card as on the CPU; {times['roofline']:.1f} s")
+    if bad:
+        raise AssertionError(f"roofline out of range: {bad}")
+    if min(launches["A"], launches["C"],
+           max(launches["B"], launches["B''"])) <= 0:
+        raise AssertionError(f"roofline: a kernel was not launched: "
+                             f"{launches}")
+
+    # (b) the seed sweep and its summary
+    t0 = time.perf_counter()
+    sweep_dir = os.path.join(tmp, "sweep")
+    sweep, text = quiet(seed_sweep.main, [
+        "--archs", "cnn8", "--seeds", "0,1", "--modes", "cached,fused",
+        "--epochs", "2", "--root", root, "--out", sweep_dir, "--device",
+        "cuda"])
+    for line in text.splitlines():
+        if line.startswith("[sweep]"):
+            log(f"[tools]   {line}")
+    summary, _ = quiet(seed_sweep.main, ["summarize", "--dir", sweep_dir])
+    times["seed_sweep"] = time.perf_counter() - t0
+    diff = seed_sweep.disagreements(sweep, summary)
+    log(f"[tools] (b) seed_sweep cnn8 x seeds 0,1 x cached,fused, 2 epochs "
+        f"({times['seed_sweep']:.1f} s): "
+        + "; ".join(f"{k} val acc mean {v['val_acc_mean']:.4f} over "
+                    f"{v['n_seeds']} seeds" for k, v in sweep.items())
+        + f"; summarize agrees on every shared key: {not diff}")
+    if diff or set(sweep) != {"cached_cnn8", "fused_cnn8"} or any(
+            v["n_seeds"] != 2 for v in summary.values()):
+        raise AssertionError(f"seed sweep: {sorted(sweep)}, {diff}")
+
+    # (c) ensemble validation on phase 6's checkpoints
+    t0 = time.perf_counter()
+    e2e_out = os.path.join(tmp, "e2e")
+    argv = [x for arch in ("cnn8", "vgg") for x in (
+        "--ckpt", f"{arch}="
+        f"{ckpt_lib.latest_checkpoint(cli.ckpt_dir(e2e_out, arch))}")]
+    ens, _ = quiet(ensemble_val.main, [*argv, "--root", root, "--device",
+                                       "cuda"])
+    times["ensemble_val"] = time.perf_counter() - t0
+    metrics = [v for part in (*ens["members"].values(),
+                              ens["weighted_ensemble"],
+                              ens["average_ensemble"]) for v in part.values()]
+    log(f"[tools] (c) ensemble_val on {ens['val_n']} val clips "
+        f"({times['ensemble_val']:.1f} s): members {ens['members']}; "
+        f"weights {ens['weights_softmax']}; weighted "
+        f"{ens['weighted_ensemble']}; average {ens['average_ensemble']}")
+    if not (abs(sum(ens["weights_softmax"]) - 1) <= 1e-5
+            and all(0 <= v <= 1 for v in metrics)):
+        raise AssertionError(f"ensemble_val out of range: {ens}")
+
+    # (d) the deviation sweep, folded into a parity sweep
+    t0 = time.perf_counter()
+    dev_path = os.path.join(tmp, "deviations.json")
+    dev, _ = quiet(deviation_sweep.main, ["--root", root, "--n-resample",
+                                          "8", "--device", "cuda", "--out",
+                                          dev_path])
+    rep_path = os.path.join(tmp, "parity_dev.json")
+    rc, _ = quiet(parity_sweep.main, [
+        "--root", os.path.join(tmp, "no_dataset"), "--n-clips", "64",
+        "--n-oracle", "16", "--device", "cuda", "--deviations", dev_path,
+        "--out", rep_path])
+    with open(rep_path) as f:
+        folded = json.load(f)["documented_deviations"]
+    times["deviation_sweep"] = time.perf_counter() - t0
+    log(f"[tools] (d) deviation_sweep on {dev['n_clips_total']} clips "
+        f"({times['deviation_sweep']:.1f} s): peak ties "
+        f"{dev['peak_tie']}; resampler {dev['resampler_chroma_channel']}; "
+        f"folded into the parity sweep's documented_deviations: "
+        f"{folded == dev}, the sweep's exit code {rc}")
+    if rc != 0 or folded != dev:
+        raise AssertionError(f"parity sweep with --deviations: rc {rc}, "
+                             f"folded {folded == dev}")
+
+    # (e) the flip hunt on the parity phase's clips
+    t0 = time.perf_counter()
+    wavs, ids, _ = parity_sweep.seeded_clips(512, seed=0)
+    flips, _ = quiet(flip_hunt.find_flips, wavs, ids, "cuda")
+    times["flip_hunt"] = time.perf_counter() - t0
+    log(f"[tools] (e) find_flips on {len(flip_hunt.sample_indices(512))} of "
+        f"the parity phase's clips ({times['flip_hunt']:.1f} s): "
+        f"{len(flips)} flips")
+    for flip in flips:
+        diag = flip_hunt.diagnose(wavs[flip["index"]], "cuda")
+        log(f"[tools]   {flip}: {json.dumps(diag)}")
+
+    launches = read_launches()
+    seconds = time.perf_counter() - t_phase
+    parts = ", ".join(f"{k} {v:.1f} s" for k, v in times.items())
+    log(f"[tools] phase {seconds:.1f} s ({parts}); launches {launches}; "
+        f"{smi}")
+    return {"launches": launches, "seconds": seconds}
+
+
 def phase_times(serve: dict, e2e: dict, fused: dict) -> None:
     from tpu_breath_torch import augment, ensemble
     from tpu_breath_torch.config import CNN8_TRAIN, DEFAULT_FEATURES, VGG_TRAIN
@@ -1464,6 +1601,7 @@ def main(argv: list[str] | None = None) -> int:
         mesh = phase_mesh(tmp, env["smi"])
         phase_profile(tmp)
         bench = phase_bench(env["smi"])
+        tools = phase_tools(tmp, env["smi"])
         phase_times(serve, e2e, fused)
     src = "tpu_breath_torch/csrc"
     pallas = "tpu_breath/ops/pallas"
@@ -1483,7 +1621,8 @@ def main(argv: list[str] | None = None) -> int:
     # D's library time is conv1d's (its complex response, no |.|)
     paths = {"serve": serve["launches"], "e2e": e2e["launches"],
              "fused": fused["launches"], "mesh": mesh["launches"],
-             "parity": parity["launches"], "bench": bench["launches"]}
+             "parity": parity["launches"], "bench": bench["launches"],
+             "tools": tools["launches"]}
     kernels = [{"name": name, "route": "cuda", "source": f"{src}/{f}",
                 "replaces": f"{pallas}/{rep}",
                 "launches": sum(p[k] for p in paths.values()),

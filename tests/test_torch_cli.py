@@ -132,6 +132,41 @@ def test_train_from_npz(e2e, tmp_path):
     assert ckpt_lib.latest_checkpoint(cli.ckpt_dir(str(out), "cnn8"))
 
 
+def test_ensemble_val_on_the_runs_checkpoints(e2e, tmp_path):
+    """utils/ensemble_val.py end to end on the run's CPU checkpoints: the
+    seed-42 val split's rows, each member's checkpoint score, and the
+    weighted blend equal to ensemble.weighted_ensemble's on those rows."""
+    from tpu_breath_torch import ensemble
+    from tpu_breath_torch.train.metrics import binary_metrics
+    from tpu_breath_torch.utils import ensemble_val
+
+    archs = ["cnn8", "vgg"]
+    ckpts = [ckpt_lib.latest_checkpoint(cli.ckpt_dir(str(e2e["out"]), a))
+             for a in archs]
+    out = tmp_path / "ens.json"
+    rep = ensemble_val.main([*(x for a, p in zip(archs, ckpts)
+                               for x in ("--ckpt", f"{a}={p}")),
+                             "--root", str(e2e["root"]), "--device", "cpu",
+                             "--out", str(out)])
+    with open(out) as f:
+        assert json.load(f) == json.loads(json.dumps(rep))
+    va_rows = ds.split_train_val(ds.load_frames(Paths(str(e2e["root"])))[0])[1]
+    assert rep["val_n"] == len(va_rows) == 5
+    scores = [ckpt_lib.load_metadata(p)["val_acc"] for p in ckpts]
+    assert [rep["members"][a]["ckpt_val_acc"] for a in archs] == [
+        round(s, 6) for s in scores]
+    assert sum(rep["weights_softmax"]) == pytest.approx(1.0, abs=1e-5)
+    va = ds.FeatureStore.load_cache(Paths(str(e2e["root"])).feature_cache
+                                    ).subset([r["ID"] for r in va_rows])
+    y = ds.labels_from_targets([r["Target"] for r in va_rows])
+    blend = ensemble.weighted_ensemble(ckpts, archs, scores, va.features,
+                                       va.scalars, 36, device="cpu")
+    for k, v in binary_metrics(blend, y).items():
+        assert rep["weighted_ensemble"][k] == pytest.approx(v, abs=1e-6,
+                                                            nan_ok=True)
+        assert np.isnan(v) or 0.0 <= v <= 1.0
+
+
 def test_fused_train_raises_on_a_train_wav_that_does_not_decode(e2e,
                                                                  tmp_path):
     """As in the JAX package (tpu_breath/cli.py calls load_wav_batch without

@@ -840,3 +840,16 @@ def test_rolloff_on_the_card_is_the_oracles():
     near[0, 0, 0], near[0, 5, 0] = np.float32(17 / 3), 1.0
     got = scalars.spectral_rolloff(torch.from_numpy(near).cuda(), 16000, 2048)
     assert got.item() == 5 * 16000 / 2048
+
+
+def test_roofline_counts_the_same_bytes_on_the_card(clips):
+    """utils/feature_roofline.count: every stage's bytes and kernel calls
+    on the card equal the CPU's for the same clips (the kernels counted by
+    ops/cuda/work.py's model on both)."""
+    from tpu_breath_torch.utils import feature_roofline, profiling
+
+    for name, fn in profiling.feature_stages().items():
+        on_card = feature_roofline.count(fn, clips)
+        on_cpu = feature_roofline.count(fn, clips.cpu())
+        assert ((on_card["bytes"], on_card["kernel_calls"])
+                == (on_cpu["bytes"], on_cpu["kernel_calls"])), name

@@ -38,12 +38,14 @@ MODULES = {
     "ops.cqt", "ops.cuda", "ops.cuda._build", "ops.cuda.cqt_kernel",
     "ops.cuda.epilogue_kernel",
     "ops.cuda.gammatone_kernel", "ops.cuda.peaks_kernel",
-    "ops.cuda.tuning_kernel", "ops.dft", "ops.lpc", "ops.peaks",
+    "ops.cuda.tuning_kernel", "ops.cuda.work", "ops.dft", "ops.lpc", "ops.peaks",
     "ops.rhythm", "ops.scalars", "ops.select", "ops.spectral",
     "parallel", "parallel.mesh", "data.loader", "train",
     "train.checkpoint", "train.loop", "train.metrics", "train.schedule",
     "bench", "utils", "utils.gammatone_breakdown", "utils.kernel_times",
     "utils.parity_sweep", "utils.path_times", "utils.profiling",
+    "utils.feature_roofline", "utils.seed_sweep", "utils.ensemble_val",
+    "utils.deviation_sweep", "utils.flip_hunt",
 }
 
 

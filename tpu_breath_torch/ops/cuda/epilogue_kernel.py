@@ -16,6 +16,11 @@ clip's rows depend neither on B nor on its place in the batch. A clip past
 one block's tiles (F > MAX_FREQS, T > MAX_FRAMES or G > MAX_BANDS) runs the
 kernel's range instantiation: the same tiles in ranges, the log1p values
 kept in the output until the z-score's second pass.
+
+Call the wrapper through the module, as
+`epilogue_kernel.fused_epilogue(...)`, never as a name imported from it:
+utils/feature_roofline.count_kernels swaps the module's attribute to count
+the kernel's bytes, and an imported name would escape the count.
 """
 from __future__ import annotations
 

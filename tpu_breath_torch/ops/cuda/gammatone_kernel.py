@@ -11,6 +11,11 @@ clip past one cluster's tiles (T > MAX_FRAMES, F > MAX_FREQS,
 G > MAX_BANDS or K not a multiple of K_TILE) runs the kernel's range
 instantiation, its |S| in a [B, F, T] scratch that the wrapper allocates.
 Frames that do not start on a 16-byte boundary are copied once.
+
+Call the wrapper through the module, as
+`gammatone_kernel.fused_gammatone(...)`, never as a name imported from it:
+utils/feature_roofline.count_kernels swaps the module's attribute to count
+the kernel's bytes, and an imported name would escape the count.
 """
 from __future__ import annotations
 

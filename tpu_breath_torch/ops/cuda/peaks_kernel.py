@@ -10,6 +10,11 @@ is kept in shared memory, as on the main path (16,000 samples); a longer
 row has it in a scratch buffer in device memory that the wrapper allocates
 (8 bytes a score of the batch). The wrapper picks from n before the launch;
 the kernel's code and results are the same either way.
+
+Call the wrapper through the module, as `peaks_kernel.suppress_peaks(...)`,
+never as a name imported from it: utils/feature_roofline.count_kernels swaps
+the module's attribute to count the kernel's bytes, and an imported name
+would escape the count.
 """
 from __future__ import annotations
 

@@ -8,6 +8,11 @@ for one clip per block; the plain version below is the same math in PyTorch
 and is what CPU tensors run. The kernel takes clips of any length: past
 SMEM_PAIRS pairs a clip its compacted list sits in device memory, the same
 code otherwise.
+
+Call the wrapper through the module, as
+`tuning_kernel.estimate_tuning_index(...)`, never as a name imported from
+it: utils/feature_roofline.count_kernels swaps the module's attribute to
+count the kernel's bytes, and an imported name would escape the count.
 """
 from __future__ import annotations
 

@@ -35,12 +35,14 @@ both sides.
 
     python -m tpu_breath_torch.utils.parity_sweep [--root input]
         [--n-clips 512] [--n-oracle 128] [--seed 0] [--out R.json]
-        [--device cuda] [--fused-gt]
+        [--device cuda] [--fused-gt] [--deviations PATH]
 
 With a dataset under --root (train.csv, test.csv and their wavs) the
 sweep runs on its train and test clips; otherwise on --n-clips seeded
 clips (seeded_clips). Prints the report as JSON, writes it to --out when
-given, and exits 1 when the report misses the envelope.
+given, and exits 1 when the report misses the envelope. --deviations
+PATH folds in a report of utils/deviation_sweep.py as
+`documented_deviations` (null without one).
 """
 from __future__ import annotations
 
@@ -297,8 +299,8 @@ def make_report(wavs: np.ndarray, ids: list[str], synthetic: np.ndarray,
         "tuning_flip_rate_bpo12": sum(f["bpo"] == 12 for f in flips) / n,
         "tuning_flip_rate_bpo36": sum(f["bpo"] == 36 for f in flips) / n,
         "tuning_flips": flips,
-        # tools/deviation_sweep.py's dataset-level bounds, not ported (it
-        # needs the dataset)
+        # utils/deviation_sweep.py's report, folded in by main's
+        # --deviations (tools/parity_sweep.py:157-164)
         "documented_deviations": None,
         "n_oracle_synthetic": int(np.count_nonzero(synthetic[sample])),
         "channel_max_abs_err_unflipped": channels_unflipped,
@@ -411,6 +413,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--fused-gt", action="store_true",
                     help="the gammatone channel by kernel B'' (default B)")
+    ap.add_argument("--deviations", default=None, metavar="PATH",
+                    help="a report of utils/deviation_sweep.py, folded in "
+                         "as documented_deviations")
     args = ap.parse_args(argv)
     if os.path.exists(Paths(root=args.root).train_csv):
         wavs, ids = dataset_clips(args.root)
@@ -419,6 +424,9 @@ def main(argv: list[str] | None = None) -> int:
         wavs, ids, synthetic = seeded_clips(args.n_clips, args.seed)
     report = sweep(wavs, ids, args.n_oracle, args.seed, args.device,
                    args.fused_gt, synthetic=synthetic)
+    if args.deviations:
+        with open(args.deviations) as f:
+            report["documented_deviations"] = json.load(f)
     misses = envelope_misses(report)
     report["envelope_misses"] = misses
     if args.out:
