@@ -40,10 +40,19 @@ no result line):
      (full width, batch 512), train --archs cnn8 --epochs 7 --resume,
      predict from the cache and predict --from-wav; kernels A, B, B'', C
      must launch;
+  repro. same seed, same history, with every cuDNN flag at its default
+     (fit's own reproducible scope), on phase 6's dataset and cache: train
+     cnn8,vgg 6 epochs again equals phase 6 bit for bit; train --fused
+     cnn8,vgg twice, equal; a 7-epoch cnn8 run stopped at its 4th epoch
+     line and resumed equals an uninterrupted one; --seed 1 differs from
+     seed 0; A/B''/C launched 384/192/192 times; then scope_cost: the
+     bench's split pieces (fwd, grad, cached and fused steps, batch 512)
+     timed with and without loop.reproducible() in turns, printed as
+     {"scope_cost": ...};
   7. fused: the features inside one fused step against the cache's rows
-     (equal), then under deterministic cuDNN train --archs cnn8,vgg
-     --epochs 6 from the cache and train --fused ... --predict with
-     TPU_BREATH_PALLAS_GT=1: equal histories, A/B''/C launched 192/96/96
+     (equal), then train --archs cnn8,vgg --epochs 6 from the cache and
+     train --fused ... --predict with TPU_BREATH_PALLAS_GT=1, cuDNN flags
+     at their defaults: equal histories, A/B''/C launched 192/96/96
      times, a submission;
   mesh. data parallelism (parallel/mesh.py): fit's streaming path on one
      NCCL rank against the resident path (cached CNN8, batch 512, 2
@@ -75,9 +84,9 @@ no result line):
      serve micro-batch's median and p90 over 40 calls, one train step of
      CNN8 and of VGG at batch 512 (CUDA events), cached and fused
      (features and model apart), epoch wall times and precompute clips/s;
- 10. the kernels JSON line (launches by path: serve, e2e, fused, mesh,
-     parity, bench, tools), then the last line: {"ok": true, "device":
-     {...}}.
+ 10. the kernels JSON line (launches by path: serve, e2e, repro, fused,
+     mesh, parity, bench, tools), then the last line: {"ok": true,
+     "device": {...}}.
 
 With --cards N (N cards): phases 1 and 2, then the seeded dataset's
 precompute in one process and mesh_runs over N ranks, one a card over
@@ -711,11 +720,8 @@ def phase_e2e(tmp: str) -> dict:
     common = ["--root", root, "--out-root", out_root, "--device", "cuda"]
     res = {}
     reset_launches()
-    os.environ["TPU_BREATH_PALLAS_GT"] = "1"
-    try:
+    with gt_switch():
         out, dt = run_cli(["precompute", *common])
-    finally:
-        del os.environ["TPU_BREATH_PALLAS_GT"]
     res["precompute_s"] = dt
     res["precompute_line"] = next(l for l in out.splitlines()
                                   if l.startswith("features:"))
@@ -786,17 +792,174 @@ def phase_e2e(tmp: str) -> dict:
     return res
 
 
+REPRO_KEYS = ("train_loss", "train_acc", "val_loss", "val_acc", "lr")
+
+
+def history_diff(a: list[dict], b: list[dict]) -> dict:
+    """REPRO_KEYS -> max |a - b| over the epochs of a (b must hold each of
+    them), or None for every key when b lacks one."""
+    by_epoch = {r["epoch"]: r for r in b}
+    if not a or any(r["epoch"] not in by_epoch for r in a):
+        return dict.fromkeys(REPRO_KEYS)
+    return {k: max(abs(r[k] - by_epoch[r["epoch"]][k]) for r in a)
+            for k in REPRO_KEYS}
+
+
+class Interrupted(Exception):
+    """A CLI run stopped at an epoch line (phase_repro)."""
+
+
+class StopAtEpoch(io.StringIO):
+    """stdout that raises Interrupted once `epoch`'s line is written, as a
+    run killed right after it would stop: that epoch's checkpoint unsaved."""
+
+    def __init__(self, epoch: int):
+        super().__init__()
+        self.line = f"[Epoch {epoch:03d}]"
+
+    def write(self, s: str) -> int:
+        n = super().write(s)
+        if s.startswith(self.line):
+            raise Interrupted
+        return n
+
+
+def phase_repro(tmp: str, e2e: dict) -> dict:
+    """Same seed, same history, on phase 6's dataset and cache through
+    cli.main on cuda, with every cuDNN flag at the caller's default:
+    (a) train cnn8,vgg 6 epochs again into another out-root: each epoch's
+    REPRO_KEYS equal phase 6's bit for bit; (b) train --fused cnn8,vgg 6
+    epochs with TPU_BREATH_PALLAS_GT=1, twice: equal; (c) train cnn8 7
+    epochs stopped at its 4th epoch line, then --resume: the resumed
+    epochs equal an uninterrupted 7-epoch run's; (d) --seed 1 cnn8,vgg:
+    each history differs from seed 0's (phase 6). Logs the largest |diff|
+    per key of every comparison, then raises if one failed. A, B'' and C
+    launch 384 / 192 / 192 times (the two fused runs)."""
+    from tpu_breath_torch import cli
+
+    root = os.path.join(tmp, "input")
+    t0 = time.perf_counter()
+    reset_launches()
+
+    def train(name: str, *argv: str) -> str:
+        out_root = os.path.join(tmp, "repro", name)
+        run_cli(["train", *argv, "--root", root, "--out-root", out_root,
+                 "--device", "cuda"])
+        return out_root
+
+    failed = []
+
+    def compare(label: str, a: list[dict], b: list[dict], equal: bool):
+        d = history_diff(a, b)
+        same = len(a) == len(b) and all(v == 0 for v in d.values())
+        log(f"[repro] {label}: {len(a)} / {len(b)} epochs, max |diff| "
+            f"{d} -> {'equal' if same else 'differ'} (want "
+            f"{'equal' if equal else 'differ'})")
+        if same != equal:
+            failed.append(label)
+
+    six = ("--archs", "cnn8,vgg", "--epochs", "6")
+    again = train("again", *six)
+    with gt_switch():
+        fused = [train(f"fused{i}", "--fused", *six) for i in (1, 2)]
+    seed1 = train("seed1", *six, "--seed", "1")
+    for arch in ("cnn8", "vgg"):
+        compare(f"(a) {arch} cached, again vs phase 6",
+                read_history(again, arch), e2e[arch], True)
+        compare(f"(b) {arch} fused, run 2 vs run 1",
+                *(read_history(o, arch) for o in fused[::-1]), True)
+        compare(f"(d) {arch} seed 1 vs seed 0",
+                read_history(seed1, arch), e2e[arch], False)
+
+    seven = ("--archs", "cnn8", "--epochs", "7")
+    full = train("full7", *seven)
+    part = os.path.join(tmp, "repro", "part7")
+    common = [*seven, "--root", root, "--out-root", part, "--device", "cuda"]
+    try:
+        with contextlib.redirect_stdout(StopAtEpoch(4)):
+            cli.main(["train", *common])
+    except Interrupted:
+        pass
+    else:
+        raise AssertionError("(c) the run was not stopped at epoch 4")
+    out, _ = run_cli(["train", *common, "--resume"])
+    resumed = read_history(part, "cnn8")
+    if "resumed from epoch" not in out or resumed[0]["epoch"] <= 1:
+        raise AssertionError(f"(c) the run did not resume: {resumed}")
+    first = resumed[0]["epoch"]
+    compare(f"(c) cnn8 resumed, epochs {first}-7 vs uninterrupted",
+            resumed, [r for r in read_history(full, "cnn8")
+                      if r["epoch"] >= first], True)
+
+    launches = read_launches()
+    want = {"A": 384, "B": 0, "B'": 0, "B''": 192, "C": 192, "D": 0}
+    seconds = time.perf_counter() - t0
+    log(f"[repro] launches {launches} (expected {want}: 2 fused runs); "
+        f"phase {seconds:.1f} s")
+    if failed:
+        raise AssertionError(f"repro: {failed}")
+    if launches != want:
+        raise AssertionError("repro launches differ from the expected")
+    return {"launches": launches}
+
+
+def scope_cost(smi: str) -> None:
+    """What fit's reproducible scope costs a step, on the bench's split
+    (bench.split_pieces) at batch 512 on bench.noise clips, CNN8 and VGG:
+    fwd, grad (fwd + bwd), the cached and the fused step, each ms a launch
+    by CUDA events (bench.event_ms: mean of 8 launches, 3 rounds), timed
+    without the scope and with it in turns (without, with, with, without).
+    Printed as {"scope_cost": ...}: per piece the medians, on / off and
+    the runs; bwd = grad - fwd. Measures; checks nothing."""
+    from tpu_breath_torch import bench
+    from tpu_breath_torch.config import CNN8_TRAIN, DEFAULT_FEATURES, VGG_TRAIN
+    from tpu_breath_torch.models import registry
+    from tpu_breath_torch.train import loop
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    b, names = bench.TRAIN_BATCH, ("fwd", "grad", "cached", "fused")
+    w = torch.from_numpy(bench.noise(b)).to(dev)
+    y = (torch.arange(b, device=dev) % 2).float()
+    res = {"device": smi, "batch": b}
+    for arch, cfg in (("cnn8", CNN8_TRAIN), ("vgg", VGG_TRAIN)):
+        cfg = dataclasses.replace(cfg, batch_size=b)
+        model = registry.build(arch, DEFAULT_FEATURES.n_scalars).to(dev)
+        pieces = bench.split_pieces(
+            model, loop.make_optimizer(model, cfg), cfg, DEFAULT_FEATURES,
+            w, y, 1e-4, torch.Generator(device=dev).manual_seed(1))
+        model.train()
+        runs = {k: {"off": [], "on": []} for k in names}
+        for on in (False, True, True, False):
+            with loop.reproducible() if on else contextlib.nullcontext():
+                for k in names:
+                    runs[k]["on" if on else "off"] += bench.event_ms(
+                        pieces[k], bench.TRAIN_STEPS, bench.SPLIT_ROUNDS,
+                        dev)
+        med = {k: {s: float(np.median(r[s])) for s in r}
+               for k, r in runs.items()}
+        med["bwd"] = {s: med["grad"][s] - med["fwd"][s] for s in ("off", "on")}
+        res[arch] = {k: {"off_ms": m["off"], "on_ms": m["on"],
+                         "on_over_off": m["on"] / m["off"],
+                         **({"runs": runs[k]} if k in runs else {})}
+                     for k, m in med.items()}
+        log(f"[repro] scope cost, {arch} batch {b} (ms, without -> with): "
+            + "; ".join(f"{k} {m['off']:.2f} -> {m['on']:.2f}"
+                        for k, m in med.items()) + f" ({smi})")
+        del model, pieces
+    res["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"scope_cost": res}), flush=True)
+
+
 @contextlib.contextmanager
-def gt_switch_and_deterministic_cudnn():
-    """TPU_BREATH_PALLAS_GT=1 (the features of the cache) and cuDNN's
-    deterministic algorithms inside the block."""
+def gt_switch():
+    """TPU_BREATH_PALLAS_GT=1 (kernel B'', the features of the cache)
+    inside the block."""
     os.environ["TPU_BREATH_PALLAS_GT"] = "1"
-    torch.backends.cudnn.deterministic = True
     try:
         yield
     finally:
         del os.environ["TPU_BREATH_PALLAS_GT"]
-        torch.backends.cudnn.deterministic = False
 
 
 def phase_fused(tmp: str) -> dict:
@@ -810,7 +973,7 @@ def phase_fused(tmp: str) -> dict:
 
     root = os.path.join(tmp, "input")
     res = {}
-    with gt_switch_and_deterministic_cudnn():
+    with gt_switch():
         # the features inside one fused step (the first batch of epoch 1,
         # 4 chunks of 128 clips, precompute's geometry) against the cache
         tr = cli._prepare_splits(Paths(root, tmp), DEFAULT_FEATURES,
@@ -861,11 +1024,11 @@ def phase_fused(tmp: str) -> dict:
         log(f"[fused] {arch} train loss by epoch "
             f"{[round(r['train_loss'], 6) for r in hf]}, val acc "
             f"{[round(r['val_acc'], 4) for r in hf]}")
-    # bound 0: equal features, deterministic cuDNN, and every other draw
-    # the cached run's
+    # bound 0: equal features, fit's reproducible scope, and every other
+    # draw the cached run's
     log(f"[fused] fused vs cached history, max |diff|: train_loss "
         f"{worst['train_loss']:.3g}, val_acc {worst['val_acc']:.3g} "
-        f"(bound 0, cuDNN deterministic)")
+        f"(bound 0, cuDNN flags at their defaults)")
     if any(worst.values()):
         raise AssertionError(f"fused history differs from cached: {worst}")
     read_submission(os.path.join(fused_out, "submissions", "submission.csv"),
@@ -969,7 +1132,7 @@ def same_weights(out: str, names: list[str], world: int = 2) -> None:
 def phase_mesh(tmp: str, smi: str) -> dict:
     """Data parallelism (parallel/mesh.py) on this card. (i) The streaming
     path of fit(mesh=...) on one NCCL rank, cached CNN8, batch 512, 2
-    epochs, f32, deterministic cuDNN: its history matches the resident
+    epochs, f32: its history matches the resident
     path's (train accuracy equal, losses within 1e-3), and a warm streamed
     step raises nothing under torch.cuda.set_sync_debug_mode("error").
     (ii) Two ranks sharing the card over gloo, started as torchrun would:
@@ -1002,7 +1165,6 @@ def phase_mesh(tmp: str, smi: str) -> dict:
         tr, va, _, y_tr, y_va = cli._prepare_splits(
             Paths(root, tmp), DEFAULT_FEATURES, torch.device("cuda"))
         cfg = dataclasses.replace(CNN8_TRAIN, num_epochs=2)
-        torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.allow_tf32 = False
         hist, step_ms = {}, []
         try:
@@ -1059,7 +1221,6 @@ def phase_mesh(tmp: str, smi: str) -> dict:
                 step_ms.append((time.perf_counter() - t0) * 1e3)
             layers.set_mesh(model, None)
         finally:
-            torch.backends.cudnn.deterministic = False
             torch.backends.cudnn.allow_tf32 = True
         dl = max(abs(a[k] - b[k]) for a, b in zip(hist["resident"],
                                                    hist["streaming"])
@@ -1181,12 +1342,9 @@ def phase_cards(tmp: str, smi: str, cards: int) -> None:
     on card 0, then mesh_runs over N ranks."""
     root = os.path.join(tmp, "input")
     make_dataset(root)
-    os.environ["TPU_BREATH_PALLAS_GT"] = "1"
-    try:
+    with gt_switch():
         run_cli(["precompute", "--root", root, "--out-root", tmp,
                  "--device", "cuda"])
-    finally:
-        del os.environ["TPU_BREATH_PALLAS_GT"]
     mesh_runs(tmp, root, cards, smi)
 
 
@@ -1197,15 +1355,12 @@ def phase_profile(tmp: str) -> None:
     prof = os.path.join(tmp, "profile")
     common = ["--root", root, "--out-root", os.path.join(tmp, "prof_out"),
               "--device", "cuda"]
-    os.environ["TPU_BREATH_PALLAS_GT"] = "1"  # the cache's features
-    try:
+    with gt_switch():  # the cache's features
         run_cli(["precompute", "--profile", os.path.join(prof, "features"),
                  *common])
         _, dt = run_cli(["train", "--fused", "--archs", "cnn8", "--epochs",
                          "2", "--profile", os.path.join(prof, "train"),
                          *common])
-    finally:
-        del os.environ["TPU_BREATH_PALLAS_GT"]
     with open(os.path.join(prof, "features", "feature_stages.json")) as f:
         stages = json.load(f)
     log(f"[profile] feature stages over {stages['n_clips']} clips in chunks "
@@ -1544,8 +1699,7 @@ def phase_times(serve: dict, e2e: dict, fused: dict) -> None:
             f"{np.median(secs):.3f} s over epochs 2-6")
         # the fused step on b train clips, as train --fused runs it (B'')
         w = fused["wavs"][:b]
-        os.environ["TPU_BREATH_PALLAS_GT"] = "1"
-        try:
+        with gt_switch():
             feat_ms = cuda_ms(lambda: loop.fused_features(w, DEFAULT_FEATURES),
                               iters=3, warmup=1)
             fb = augment.Batch(*loop.fused_features(w, DEFAULT_FEATURES),
@@ -1556,8 +1710,6 @@ def phase_times(serve: dict, e2e: dict, fused: dict) -> None:
                 model, opt, 1e-4, augment.Batch(
                     *loop.fused_features(w, DEFAULT_FEATURES), fb.labels),
                 cfg, draws), iters=3, warmup=1)
-        finally:
-            del os.environ["TPU_BREATH_PALLAS_GT"]
         fsecs = [r["sec"] for r in fused[arch][1:]]
         log(f"[time] {arch} fused train step, batch {b} (CUDA events): "
             f"{step_ms:.2f} ms (mean of 3) = features {feat_ms:.2f} ms "
@@ -1597,6 +1749,8 @@ def main(argv: list[str] | None = None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         serve = phase_serve(tmp)
         e2e = phase_e2e(tmp)
+        repro = phase_repro(tmp, e2e)
+        scope_cost(env["smi"])
         fused = phase_fused(tmp)
         mesh = phase_mesh(tmp, env["smi"])
         phase_profile(tmp)
@@ -1620,7 +1774,7 @@ def main(argv: list[str] | None = None) -> int:
     # precompute chunk (B = 128). No single PyTorch call computes A-C;
     # D's library time is conv1d's (its complex response, no |.|)
     paths = {"serve": serve["launches"], "e2e": e2e["launches"],
-             "fused": fused["launches"], "mesh": mesh["launches"],
+             "repro": repro["launches"], "fused": fused["launches"], "mesh": mesh["launches"],
              "parity": parity["launches"], "bench": bench["launches"],
              "tools": tools["launches"]}
     kernels = [{"name": name, "route": "cuda", "source": f"{src}/{f}",

@@ -328,6 +328,49 @@ def test_fit_on_card_runs_and_resumes(clips, tmp_path):
         assert again.history and again.history[-1]["epoch"] == 3
 
 
+def test_fit_on_card_is_a_function_of_its_seed(clips, tmp_path):
+    """At the default cuDNN flags, two fits of the toy data with one seed
+    give equal histories (CNN8 and VGG, augmentation from epoch 3, dropout),
+    and a CNN8 run stopped at its 6th epoch line and resumed equals the
+    uninterrupted run, bit for bit."""
+    from tpu_breath_torch.config import TrainCfg
+    from tpu_breath_torch.models import registry
+    from tpu_breath_torch.train import loop
+
+    assert not torch.backends.cudnn.deterministic  # fit's scope does it
+    rng = np.random.default_rng(42)
+    y = (np.arange(32) % 2).astype(np.float32)
+    f = (rng.standard_normal((32, 9, 16, 16)).astype(np.float32) * 0.1
+         + 2.0 * y[:, None, None, None])
+    s = rng.standard_normal((32, 36)).astype(np.float32)
+    s[:, 0] = 3.0 * y
+    cfg = TrainCfg(num_epochs=10, base_lr=1e-3, batch_size=8,
+                   eval_batch_size=16, warmup_epochs=2, patience=99, seed=3)
+
+    def history(arch, log_fn=lambda *_: None, **kw):
+        res = loop.fit(registry.build(arch, 36, seed=cfg.seed), (f, s),
+                       (f, s), y, y, cfg, log_fn=log_fn, **kw)
+        return [{k: v for k, v in r.items() if k != "sec"}
+                for r in res.history]
+
+    for arch in ("cnn8", "vgg"):
+        assert history(arch) == history(arch)
+
+    class Killed(Exception):
+        pass
+
+    def kill_at_6(msg):
+        if msg.startswith("[Epoch 006]"):
+            raise Killed
+
+    full = history("cnn8", save_dir=str(tmp_path / "full"))
+    with pytest.raises(Killed):
+        history("cnn8", kill_at_6, save_dir=str(tmp_path / "part"))
+    resumed = history("cnn8", save_dir=str(tmp_path / "part"), resume=True)
+    assert resumed and resumed[0]["epoch"] > 1
+    assert resumed == full[resumed[0]["epoch"] - 1:]
+
+
 def test_peaks_kernel_exact(clips):
     from tpu_breath_torch.ops import dft, peaks
     from tpu_breath_torch.ops.cuda import peaks_kernel as pk
@@ -710,8 +753,8 @@ def test_feature_call_leaves_tf32_and_the_train_loss_alone(clips):
 def test_fused_fit_on_card(clips, monkeypatch):
     """A fused fit of 2 epochs on the card with TPU_BREATH_PALLAS_GT=1:
     kernels A, B'' and C launch in its steps; a step's features equal the
-    cached features, computed at the same chunk geometry (8 clips); under
-    deterministic cuDNN its history equals the cached fit's."""
+    cached features, computed at the same chunk geometry (8 clips); at the
+    caller's default cuDNN flags its history equals the cached fit's."""
     from tpu_breath_torch.config import DEFAULT_FEATURES as SPEC
     from tpu_breath_torch.config import TrainCfg
     from tpu_breath_torch.features import extract_features_batched
@@ -722,7 +765,6 @@ def test_fused_fit_on_card(clips, monkeypatch):
     from tpu_breath_torch.train import loop
 
     monkeypatch.setenv("TPU_BREATH_PALLAS_GT", "1")
-    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
     g = torch.Generator(device="cuda").manual_seed(6)
     w = torch.cat([clips[:2], 0.05 * torch.randn(14, 16000, generator=g,
                                                   device="cuda")])

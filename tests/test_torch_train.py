@@ -25,6 +25,17 @@ from tpu_breath_torch.train import loop
 from tpu_breath_torch.train.schedule import warmup_cosine
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread in this module: its fits are many small ops, which
+    parallel test workers slow by orders of magnitude when each spreads
+    them over every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ------------------------------------------------------------------ schedule
 
 @pytest.mark.parametrize("base_lr,total", [(4e-4, 2 * 100), (1e-3, 2 * 140),
@@ -455,3 +466,62 @@ def test_fit_on_cuda_without_card_raises(toy_data, monkeypatch):
     with pytest.raises(RuntimeError):
         loop.fit(registry.build("cnn8", 36), (f, s), (f, s), y, y,
                  TrainCfg(batch_size=8))
+
+
+# ----------------------------------------------------------- reproducibility
+
+def _seeded_history(seed):
+    """tests/test_reproducibility.py's run on the port: 32 clips of 9x16x8,
+    CNN8, 3 epochs at batch 16, augmentation from epoch 2, on the CPU; the
+    history without its wall times."""
+    rng = np.random.default_rng(7)
+    n = 32
+    feats = rng.standard_normal((n, 9, 16, 8)).astype(np.float32)
+    scals = rng.standard_normal((n, 36)).astype(np.float32)
+    labels = (np.arange(n) % 2).astype(np.float32)
+    cfg = TrainCfg(num_epochs=3, base_lr=1e-3, batch_size=16,
+                   eval_batch_size=16, warmup_epochs=1, patience=99,
+                   seed=seed)
+    res = loop.fit(registry.build("cnn8", 36, seed=seed), (feats, scals),
+                   (feats, scals), labels, labels, cfg, log_fn=lambda *_: None,
+                   device="cpu")
+    return [{k: v for k, v in r.items() if k != "sec"} for r in res.history]
+
+
+def test_same_seed_identical_history():
+    """Two fits with one seed: equal histories, every key bit for bit."""
+    assert _seeded_history(5) == _seeded_history(5)
+
+
+def test_different_seed_different_history():
+    assert _seeded_history(5) != _seeded_history(6)
+
+
+def test_fit_runs_inside_the_reproducible_scope(toy_data, monkeypatch):
+    """Every step of fit sees cuDNN deterministic and not benchmarking; the
+    caller's flags come back after fit returns and after it raises."""
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", True)
+    caller = (torch.backends.cudnn.deterministic, True)
+    seen, step = [], loop.train_step
+
+    def spy(*a, **k):
+        seen.append((torch.backends.cudnn.deterministic,
+                     torch.backends.cudnn.benchmark))
+        return step(*a, **k)
+
+    monkeypatch.setattr(loop, "train_step", spy)
+    cfg = TrainCfg(num_epochs=2, batch_size=8, eval_batch_size=16,
+                   warmup_epochs=1, patience=99)
+    _fit(toy_data, cfg)
+    assert seen == [(True, False)] * 8
+    assert (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark) == caller
+
+    def stop(msg):
+        raise KeyboardInterrupt
+
+    with pytest.raises(KeyboardInterrupt):
+        _fit(toy_data, cfg, log_fn=stop)
+    assert seen[8:] == [(True, False)] * 4
+    assert (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark) == caller

@@ -41,6 +41,9 @@ Parts, in order:
    (fused - cached, grad - fwd, cached - grad) and the cached step at half,
    one and two times the batch; the model's peak device memory.
 
+Parts 3, 4 and 6 run inside loop.reproducible(), cuDNN's deterministic
+algorithms, as every step of fit does.
+
 Parts 2-4 run once to warm up, then --repeats times in this process: the
 line gives each rate's median and its runs.
 
@@ -236,6 +239,36 @@ def piece(ms_runs: list[float], b: int, flops: float) -> dict:
             "gflop": flops / 1e9, "mfu": flops / (ms / 1e3) / PEAK_FLOPS}
 
 
+def split_pieces(model, opt, cfg, spec, w: torch.Tensor, y: torch.Tensor,
+                 lr: float, gen: torch.Generator) -> dict:
+    """The step split's pieces on one batch of wavs w and labels y, each a
+    call: `features` (fused_features), `fwd` (forward, no grad), `grad`
+    (forward + BCE + backward), `cached` (fit_step on w's precomputed
+    features; its arguments may name another batch and config) and `fused`
+    (fit_step on w)."""
+    f, sc = loop.fused_features(w, spec)
+    params = list(model.parameters())
+
+    def features():
+        loop.fused_features(w, spec)
+
+    @torch.no_grad()
+    def fwd():
+        model(f, sc)
+
+    def grad():
+        torch.autograd.grad(loop.bce_with_logits(model(f, sc), y), params)
+
+    def cached(c=cfg, ff=f, ss=sc, yy=y):
+        loop.fit_step(model, opt, lr, (ff, ss, yy), None, c, gen, True)
+
+    def fused():
+        loop.fit_step(model, opt, lr, (w, y), None, cfg, gen, True, spec)
+
+    return {"features": features, "fwd": fwd, "grad": grad,
+            "cached": cached, "fused": fused}
+
+
 def fused_and_split(arch: str, cfg, x: torch.Tensor, labels: torch.Tensor,
                     a: argparse.Namespace, feat_flops_clip: float,
                     device: torch.device) -> dict:
@@ -273,53 +306,32 @@ def fused_and_split(arch: str, cfg, x: torch.Tensor, labels: torch.Tensor,
         f"steps; loss {loss:.4f}")
 
     # the step split on the first batch
-    w, y = x[:b], labels[:b]
-    f, sc = loop.fused_features(w, spec)
-    lr = schedule(step)
-    params = list(model.parameters())
-
-    def features():
-        loop.fused_features(w, spec)
-
-    @torch.no_grad()
-    def fwd():
-        model(f, sc)
-
-    def grad():
-        torch.autograd.grad(loop.bce_with_logits(model(f, sc), y), params)
-
-    def cached(c=cfg, ff=f, ss=sc, yy=y):
-        loop.fit_step(model, opt, lr, (ff, ss, yy), None, c, gen, True)
-
-    def fused():
-        loop.fit_step(model, opt, lr, (w, y), None, cfg, gen, True, spec)
-
+    pieces = split_pieces(model, opt, cfg, spec, x[:b], labels[:b],
+                          schedule(step), gen)
     rounds = min(a.repeats, SPLIT_ROUNDS)
     model.train()
     flops = {"features": feat_flops_clip * b,
-             "fwd": counted_flops(fwd), "grad": counted_flops(grad),
-             "cached": counted_flops(cached)}
+             **{k: counted_flops(pieces[k])
+                for k in ("fwd", "grad", "cached")}}
     flops["fused"] = flops["features"] + flops["cached"]
-    split = {}
-    for name, fn in (("features", features), ("fwd", fwd), ("grad", grad),
-                     ("cached", cached), ("fused", fused)):
-        split[name] = piece(event_ms(fn, a.steps, rounds, device), b,
-                            flops[name])
+    split = {name: piece(event_ms(fn, a.steps, rounds, device), b,
+                         flops[name]) for name, fn in pieces.items()}
     log(f"{arch}: step split")
     ms_of = {k: v["ms"] for k, v in split.items()}
     split["attribution_ms"] = {
         "features(fused-cached)": ms_of["fused"] - ms_of["cached"],
         "bwd(grad-fwd)": ms_of["grad"] - ms_of["fwd"],
         "aug+clip+adamw(cached-grad)": ms_of["cached"] - ms_of["grad"]}
+    batch = (*loop.fused_features(x[:b], spec), labels[:b])
     sweep = {str(b): {"ms": ms_of["cached"],
                       "clips_per_s": split["cached"]["clips_per_s"]}}
     for bb in (b // 2, 2 * b):
         reps = -(-bb // b)
         fb, sb, yb = (t.repeat(reps, *[1] * (t.dim() - 1))[:bb]
-                      for t in (f, sc, y))
+                      for t in batch)
         cfg_b = dataclasses.replace(cfg, batch_size=bb)
-        runs = event_ms(lambda: cached(cfg_b, fb, sb, yb), a.steps, rounds,
-                        device)
+        runs = event_ms(lambda: pieces["cached"](cfg_b, fb, sb, yb),
+                        a.steps, rounds, device)
         ms_b = float(np.median(runs))
         sweep[str(bb)] = {"ms": ms_b, "clips_per_s": bb / ms_b * 1e3}
     split["cached_batch_sweep"] = dict(sorted(sweep.items(),
@@ -373,7 +385,8 @@ def measure(a: argparse.Namespace) -> dict:
                                       -(-a.n_clips // 2))[:a.n_clips]
                               ).to(device)
     cuda_devices = [device.index or 0] if device.type == "cuda" else []
-    with torch.random.fork_rng(devices=cuda_devices):
+    # the steps fit runs: inside its reproducible scope
+    with torch.random.fork_rng(devices=cuda_devices), loop.reproducible():
         torch.manual_seed(0)  # dropout masks
         runs = {arch: fused_and_split(arch, cfg, x, labels, a,
                                       feat_flops_clip, device)

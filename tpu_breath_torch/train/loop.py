@@ -12,6 +12,9 @@ best checkpoints and faithful resume.
   after its checkpoint exactly as the uninterrupted run ran them.
 - A step never waits for the host: losses and accuracies stay on the device
   until the end of the epoch.
+- fit runs inside reproducible(), cuDNN's deterministic algorithms: on the
+  card, as in the JAX package, a run is a function of its seed (one seed,
+  one history; a resumed run is the run it continues).
 
 Under a data-parallel mesh (fit(mesh=...), the JAX package's streaming
 branch) each rank holds only its host shard of the train split
@@ -30,6 +33,7 @@ checkpoints.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -56,6 +60,23 @@ class FitResult:
     best_ckpt_path: str | None
     model: nn.Module  # with the best weights when cfg.restore_best_weights
     history: list[dict]
+
+
+@contextlib.contextmanager
+def reproducible():
+    """cuDNN's deterministic algorithms inside the block (deterministic on,
+    benchmark off: no autotuned or atomics-reducing choice), the caller's
+    flags restored on exit. Without it cuDNN may pick a backward algorithm
+    whose sums land in another order from run to run."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
 
 
 def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor
@@ -224,6 +245,7 @@ def fit_step(model: nn.Module, optimizer: torch.optim.Optimizer, lr: float,
     return train_step(*args) if mesh is None else train_step(*args, mesh)
 
 
+@reproducible()
 def fit(model: nn.Module, train_store, val_store, train_labels, val_labels,
         cfg: TrainCfg, save_dir: str | None = None, log_fn=print,
         resume: bool = False, device="cuda",
@@ -243,7 +265,10 @@ def fit(model: nn.Module, train_store, val_store, train_labels, val_labels,
 
     mesh: data parallelism (the module docstring); every rank passes the
     whole split and keeps its host shard. Without a mesh the train split
-    lives on the device and a step gathers its batch by index."""
+    lives on the device and a step gathers its batch by index.
+
+    The whole run is inside reproducible(), with no way to leave it: the
+    JAX package's contract that a seed fixes the history."""
     device = mesh.device if mesh is not None else resolve_device(device)
     n_train = len(train_labels)
     b = cfg.batch_size
