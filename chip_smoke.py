@@ -24,6 +24,16 @@ no result line):
   4. extract_features on the card for the golden wavs, against the golden
      npz and the port's CPU result; with fused_gt (kernel B'') against the
      default path;
+  graphs. the captured CUDA graphs (graphs.py) against the eager path:
+     extract_features_compiled's replays bit-equal to extract_features at
+     B = 1, 8 and 128 with fused_gt off and on, two inputs in turn, each
+     replay adding its graph's launches; a Server of CNN8 + VGG bit-equal
+     to the eager composition at micro-batches of 1 and 8; then eager and
+     graphed in turns: serve at B = 1 and 8, extract_features_batched over
+     2,048 clips, the bench's split pieces `features` and `fused`, the
+     profiler's busy share of a serve call and a fused CNN8 step, each
+     graph's capture time and pool; printed as {"graphs": ...}. Every
+     later phase runs the graphed path (features, serve, fused steps);
   parity. the parity sweep (utils/parity_sweep.py) on 512 seeded clips
      (the golden wavs and shifts of them at seeded gains, silence, an
      impulse, quantized plateaus, noise), 128 of them through the port's
@@ -85,8 +95,8 @@ no result line):
      CNN8 and of VGG at batch 512 (CUDA events), cached and fused
      (features and model apart), epoch wall times and precompute clips/s;
  10. the kernels JSON line (launches by path: serve, e2e, repro, fused,
-     mesh, parity, bench, tools), then the last line: {"ok": true,
-     "device": {...}}.
+     mesh, parity, bench, tools; a graph's replay counts the kernels it
+     holds), then the last line: {"ok": true, "device": {...}}.
 
 With --cards N (N cards): phases 1 and 2, then the seeded dataset's
 precompute in one process and mesh_runs over N ranks, one a card over
@@ -112,6 +122,7 @@ import wave
 import numpy as np
 import torch
 
+from tpu_breath_torch.graphs import add_launches, read_launches
 from tpu_breath_torch.ops.cuda import work as work_lib
 from tpu_breath_torch.utils.kernel_times import calls as kernel_calls
 from tpu_breath_torch.utils.kernel_times import (clip_set, cqt_args, cuda_ms,
@@ -498,6 +509,283 @@ def phase_features() -> None:
         f"equal")
 
 
+def _clone(out):
+    return tuple(t.clone() for t in out)
+
+
+def phase_graphs(smi: str) -> dict:
+    """The captured graphs (graphs.py) against the eager path:
+    (a) extract_features_compiled's replays against extract_features, bit
+    for bit (NaN where NaN), at B = 1, 8 and 128 with fused_gt off and on,
+    on two inputs replayed in turn (golden wavs, silence, an impulse,
+    plateaus and seeded noise); each replay adds the graph's launches to
+    the counters; (b) a Server of CNN8 + VGG (seeded weights) against the
+    eager composition (extract_features -> ensemble.blend) at micro-batches
+    of 1 and 8, with a tail: probabilities bit-equal; (c) eager and graphed
+    in turns (eager, graph, graph, eager): serve at B = 1 and 8 (host
+    clock, 40 calls each), extract_features_batched over the bench's 2,048
+    clips in chunks of 128 (clips/s, 5 runs each), the bench's split
+    pieces `features` and `fused` at batch 512 for CNN8 and VGG (CUDA
+    events, 2 rounds of 8 launches each), and the profiler's device-busy
+    share of one serve call (B = 8) and one fused CNN8 step; then each
+    graph's capture time and pool. Prints {"graphs": ...}."""
+    from tpu_breath_torch import bench, ensemble, features
+    from tpu_breath_torch.train import loop
+    from tpu_breath_torch.utils import path_times
+
+    t0 = time.perf_counter()
+    res: dict = {"a": [], "pools": []}
+    gold = np.stack([d["wav"] for d in golden()])
+    for b in (1, MICRO, CHUNK):
+        inputs = ([gold[:1], gold[1:2]] if b == 1 else
+                  [clip_set(b, seed=b), clip_set(b, seed=b + 1)])
+        ys = [torch.from_numpy(x).cuda() for x in inputs]
+        for fused_gt in (False, True):
+            eager = [_clone(features.extract_features(y, fused_gt=fused_gt))
+                     for y in ys]
+            replays = [_clone(features.extract_features_compiled(
+                y, fused_gt=fused_gt)) for y in (*ys, ys[0])]
+            graph = features._GRAPHS[(ys[0].device, tuple(ys[0].shape),
+                                      features.DEFAULT_FEATURES, fused_gt)]
+            k0 = read_launches()
+            for _ in range(5):
+                features.extract_features_compiled(ys[1], fused_gt=fused_gt)
+            counted = {k: n - k0[k] for k, n in read_launches().items()}
+            same = [all(_nan_equal(g, e) for g, e in zip(got, ref))
+                    for got, ref in zip(replays, (*eager, eager[0]))]
+            row = {"B": b, "fused_gt": fused_gt, "bit_equal": same,
+                   "launches_a_replay": graph.launches,
+                   "five_replays": counted}
+            res["a"].append(row)
+            log(f"[graphs] (a) B={b} fused_gt={fused_gt}: replays of two "
+                f"inputs in turn bit-equal to eager {same}; launches a "
+                f"replay {graph.launches}, 5 replays {counted}")
+            if not all(same):
+                raise AssertionError(f"graph differs from eager: {row}")
+            if counted != {k: 5 * n for k, n in graph.launches.items()}:
+                raise AssertionError(f"replay launches: {row}")
+
+    from tpu_breath_torch.models import registry
+    models = [registry.build(a, 36, seed=0).cuda().eval()
+              for a in ("cnn8", "vgg")]
+    weights = ensemble.softmax_weights([0.79, 0.80])
+    server = ensemble.Server(models, weights, device="cuda")
+
+    def eager_serve(w: np.ndarray) -> np.ndarray:
+        with torch.no_grad():
+            y = torch.from_numpy(w).cuda()
+            return ensemble.blend(models, weights,
+                                  *features.extract_features(y)).cpu().numpy()
+
+    for b in (1, MICRO):
+        w = path_times.clips(2 * b + 1, seed=7)
+        got = server(w, micro_batch=b)
+        wp = np.concatenate([w, np.zeros((b - 1, w.shape[1]), np.float32)])
+        ref = np.concatenate([eager_serve(wp[lo:lo + b])
+                              for lo in range(0, len(w), b)])[:len(w)]
+        same = bool(np.array_equal(got.astype(np.float32), ref))
+        log(f"[graphs] (b) serve CNN8 + VGG, micro-batch {b}, {len(w)} clips "
+            f"(a tail of 1): graph == eager {same}; probs "
+            f"{np.round(got, 4).tolist()}")
+        if not (same and np.all(np.isfinite(got))):
+            raise AssertionError(f"serve graph differs: {got} vs {ref}")
+    res["b"] = True
+
+    # (c) eager and graphed in turns
+    order = (False, True, True, False)
+    serve = {}
+    for b in (1, MICRO):
+        w = path_times.clips(b, seed=1)
+        runs = {False: [], True: []}
+        for graphed in order:
+            fn = ((lambda: path_times.serve_call(server, w)) if graphed
+                  else (lambda: eager_serve(w)))
+            runs[graphed] += path_times.host_ms(fn, 20, 5, "cuda")
+        serve[b] = {mode: {"median": float(np.median(v)),
+                           "p90": float(np.percentile(v, 90)),
+                           "calls": len(v)}
+                    for mode, v in (("eager", runs[False]),
+                                    ("graph", runs[True]))}
+        log(f"[graphs] (c) serve CNN8 + VGG, B={b}, host clock, "
+            f"{len(runs[True])} calls each in turns: eager median "
+            f"{serve[b]['eager']['median']:.3f} ms p90 "
+            f"{serve[b]['eager']['p90']:.3f}; graph median "
+            f"{serve[b]['graph']['median']:.3f} ms p90 "
+            f"{serve[b]['graph']['p90']:.3f}; {smi}")
+    res["serve_ms"] = serve
+
+    wavs = bench.noise(2048)
+
+    def eager_batched():
+        for lo in range(0, len(wavs), CHUNK):
+            f, s = features.extract_features(
+                torch.from_numpy(wavs[lo:lo + CHUNK]).cuda())
+            f.cpu(), s.cpu()
+
+    rates = {False: [], True: []}
+    for graphed in (False, True, True, False, False, True, True, False,
+                    False, True):
+        fn = ((lambda: features.extract_features_batched(wavs, chunk=CHUNK))
+              if graphed else eager_batched)
+        ms = path_times.host_ms(fn, 1, 1 if not rates[graphed] else 0,
+                                "cuda")[0]
+        rates[graphed].append(len(wavs) / ms * 1e3)
+    res["features_clips_per_s"] = {
+        mode: {"median": float(np.median(v)), "runs": v}
+        for mode, v in (("eager", rates[False]), ("graph", rates[True]))}
+    log(f"[graphs] (c) 2,048 clips in chunks of {CHUNK}, wavs on the host "
+        f"-> features on the host, 5 runs each in turns: eager "
+        f"{np.median(rates[False]):.1f} clips/s, graph (extract_features_"
+        f"batched) {np.median(rates[True]):.1f} clips/s; {smi}")
+
+    res["split"] = _graph_split(wavs)
+    res["busy"] = _busy_shares(server, eager_serve)
+    for key, g in features._GRAPHS.items():
+        res["pools"].append({"graph": f"features B={key[1][0]} "
+                                      f"fused_gt={key[3]}",
+                             "capture_s": g.capture_s,
+                             "pool_bytes": g.pool_bytes})
+    for key, g in server.graphs.items():
+        res["pools"].append({"graph": f"serve CNN8+VGG B={key[0]} "
+                                      f"fused_gt={key[1]}",
+                             "capture_s": g.capture_s,
+                             "pool_bytes": g.pool_bytes})
+    for row in res["pools"]:
+        log(f"[graphs] {row['graph']}: capture (warm call included) "
+            f"{row['capture_s']:.3f} s, pool {row['pool_bytes'] / 2**20:.1f}"
+            f" MiB")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[graphs] phase {res['seconds']:.1f} s")
+    print(json.dumps({"graphs": res}, default=str), flush=True)
+    return res
+
+
+@contextlib.contextmanager
+def eager_features():
+    """loop.fused_features through extract_features (eager) instead of the
+    captured graph: the eager side of a comparison."""
+    from tpu_breath_torch import features
+    from tpu_breath_torch.train import loop
+
+    saved = loop.extract_features_compiled
+    loop.extract_features_compiled = features.extract_features
+    try:
+        yield
+    finally:
+        loop.extract_features_compiled = saved
+
+
+def _graph_split(wavs: np.ndarray) -> dict:
+    """The bench's split pieces `features` and `fused` at batch 512 for
+    CNN8 and VGG, eager and graphed in turns, inside fit's reproducible
+    scope: ms a launch by CUDA events, 2 rounds of 8 launches each way."""
+    from tpu_breath_torch import bench
+    from tpu_breath_torch.config import CNN8_TRAIN, DEFAULT_FEATURES, VGG_TRAIN
+    from tpu_breath_torch.models import registry
+    from tpu_breath_torch.train import loop
+
+    out = {}
+    w = torch.from_numpy(wavs[:512]).cuda()
+    y = torch.from_numpy(np.tile(np.float32([0.0, 1.0]), 256)).cuda()
+    with loop.reproducible():
+        for arch, cfg in (("cnn8", CNN8_TRAIN), ("vgg", VGG_TRAIN)):
+            cfg = dataclasses.replace(cfg, batch_size=512)
+            model = registry.build(arch, 36, seed=0).cuda()
+            opt = loop.make_optimizer(model, cfg)
+            gen = torch.Generator(device="cuda").manual_seed(1)
+            pieces = bench.split_pieces(model, opt, cfg, DEFAULT_FEATURES, w,
+                                        y, 1e-4, gen)
+            ms = {(p, g): [] for p in ("features", "fused")
+                  for g in (False, True)}
+            for graphed in (False, True, True, False):
+                with (contextlib.nullcontext() if graphed
+                      else eager_features()):
+                    for p in ("features", "fused"):
+                        ms[p, graphed] += bench.event_ms(pieces[p], 8, 1,
+                                                         torch.device("cuda"))
+            out[arch] = {p: {mode: float(np.median(ms[p, g]))
+                             for mode, g in (("eager", False),
+                                             ("graph", True))}
+                         for p in ("features", "fused")}
+            log(f"[graphs] (c) {arch} batch 512, ms a launch (CUDA events, "
+                f"2 rounds of 8 each way, in turns): features eager "
+                f"{out[arch]['features']['eager']:.2f} / graph "
+                f"{out[arch]['features']['graph']:.2f}; fused step eager "
+                f"{out[arch]['fused']['eager']:.2f} / graph "
+                f"{out[arch]['fused']['graph']:.2f}")
+            del model, opt, pieces
+    return out
+
+
+def _busy(fn) -> dict:
+    """One call of fn under torch.profiler after two warm calls: its
+    device kernels' time (overlaps merged), their count, the span from the
+    first kernel's start to the last one's end, the host clock's wall time
+    of the call (synchronized) and the busy shares of the span and of the
+    wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(), fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    ks = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                if e.get("cat") == "kernel")
+    busy, end = 0.0, -np.inf
+    for a, b in ks:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    span = (ks[-1][1] - ks[0][0]) if ks else 0.0
+    return {"kernels": len(ks), "device_ms": busy / 1e3,
+            "span_ms": span / 1e3, "wall_ms": wall_us / 1e3,
+            "busy_of_span": busy / span if span else None,
+            "busy_of_wall": busy / wall_us}
+
+
+def _busy_shares(server, eager_serve) -> dict:
+    """_busy of one serve call (CNN8 + VGG, B = 8) and of one fused CNN8
+    step (batch 512), eager and graphed."""
+    from tpu_breath_torch.config import CNN8_TRAIN, DEFAULT_FEATURES
+    from tpu_breath_torch.models import registry
+    from tpu_breath_torch.train import loop
+    from tpu_breath_torch.utils import path_times
+
+    w = path_times.clips(MICRO, seed=1)
+    out = {"serve_eager": _busy(lambda: eager_serve(w)),
+           "serve_graph": _busy(lambda: path_times.serve_call(server, w))}
+    cfg = CNN8_TRAIN
+    x = torch.from_numpy(path_times.clips(cfg.batch_size, seed=2)).cuda()
+    labels = torch.from_numpy(np.tile(np.float32([0.0, 1.0]),
+                                      cfg.batch_size // 2)).cuda()
+    model = registry.build("cnn8", 36, seed=0).cuda()
+    opt = loop.make_optimizer(model, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def step():
+        loop.fit_step(model, opt, 1e-4, (x, labels), None, cfg, gen, True,
+                      DEFAULT_FEATURES)
+
+    with loop.reproducible():
+        with eager_features():
+            out["fused_cnn8_eager"] = _busy(step)
+        out["fused_cnn8_graph"] = _busy(step)
+    for name, r in out.items():
+        log(f"[graphs] (c) busy {name}: {r['device_ms']:.3f} ms of device "
+            f"time in {r['kernels']} kernels, span {r['span_ms']:.3f} ms "
+            f"(busy {r['busy_of_span'] or 0:.1%}), wall {r['wall_ms']:.3f} "
+            f"ms (busy {r['busy_of_wall']:.1%})")
+    return out
+
+
 def phase_parity(smi: str) -> dict:
     """The parity sweep on the card against the port's oracle, kernel B
     and kernel B'' (see the module docstring). Returns the phase's
@@ -614,27 +902,8 @@ def phase_serve(tmp: str) -> dict:
     return {"launches": launches, "ckpt": ckpt, "wavs": wavs}
 
 
-def launch_counters() -> dict:
-    """kernel -> (wrapper module, name of its launch counter)."""
-    from tpu_breath_torch.ops.cuda import (cqt_kernel, epilogue_kernel,
-                                           gammatone_kernel, peaks_kernel,
-                                           tuning_kernel)
-    return {"A": (tuning_kernel, "LAUNCHES"),
-            "B": (epilogue_kernel, "LAUNCHES"),
-            "B'": (epilogue_kernel, "LAUNCHES_F32"),
-            "B''": (gammatone_kernel, "LAUNCHES"),
-            "C": (peaks_kernel, "LAUNCHES"),
-            "D": (cqt_kernel, "LAUNCHES")}
-
-
 def reset_launches() -> None:
-    for mod, name in launch_counters().values():
-        setattr(mod, name, 0)
-
-
-def read_launches() -> dict:
-    return {k: getattr(mod, name)
-            for k, (mod, name) in launch_counters().items()}
+    add_launches({k: -n for k, n in read_launches().items()})
 
 
 def make_dataset(root: str, n_train: int = 1280, n_test: int = 256,
@@ -1745,6 +2014,7 @@ def main(argv: list[str] | None = None) -> int:
         return 0
     ker = phase_kernels()
     phase_features()
+    phase_graphs(env["smi"])
     parity = phase_parity(env["smi"])
     with tempfile.TemporaryDirectory() as tmp:
         serve = phase_serve(tmp)

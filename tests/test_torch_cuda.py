@@ -466,19 +466,38 @@ def _captured_node_types(call) -> list[int]:
     return types
 
 
-@pytest.mark.parametrize("kernel", ["C", "B", "B'", "D"])
+@pytest.mark.parametrize("kernel", ["A", "B''", "C", "B", "B'", "D"])
 def test_wrapper_call_is_one_kernel_launch(clips, kernel):
-    """One call of kernel C's, B's, B''s or D's wrapper on CUDA tensors runs
-    one kernel on the card and nothing else: a CUDA graph captured from a
-    warm call holds one node, a kernel, and the wrapper's launch count went
-    up by one (its kernel). Its outputs are allocated, not converted."""
+    """One call of kernel A's, B'''s, C's, B's, B''s or D's wrapper on CUDA
+    tensors runs one kernel on the card and nothing else: a CUDA graph
+    captured from a warm call holds one node, a kernel, and the wrapper's
+    launch count went up by one (its kernel). Its outputs are allocated,
+    not converted."""
     from tpu_breath_torch.config import DEFAULT_FEATURES as SPEC
-    from tpu_breath_torch.ops import spectral
+    from tpu_breath_torch.ops import chroma, spectral
     from tpu_breath_torch.ops.cuda import cqt_kernel as ck
     from tpu_breath_torch.ops.cuda import epilogue_kernel as ek
+    from tpu_breath_torch.ops.cuda import gammatone_kernel as gk
     from tpu_breath_torch.ops.cuda import peaks_kernel as pk
+    from tpu_breath_torch.ops.cuda import tuning_kernel as tk
 
-    if kernel == "C":
+    if kernel == "A":
+        mag = spectral.stft_mag_cr(clips, 512, 256)
+        p, m = (t.contiguous() for t in chroma._piptrack_band(mag, 16000,
+                                                              512))
+        call = lambda: tk.estimate_tuning_index(p, m, 12)
+        count = lambda: tk.LAUNCHES
+    elif kernel == "B''":
+        yp = torch.nn.functional.pad(clips, (256, 256))
+        frames = spectral.frame_signal(yp, 512, 256, 1 + 16000 // 256
+                                       ).contiguous()
+        basis = spectral.device_const(spectral.framedft_basis, 512,
+                                      device=clips.device)
+        fb = spectral.device_const(spectral.mel_matrix, 16000, 512, 64,
+                                   device=clips.device)
+        call = lambda: gk.fused_gammatone(frames, basis, fb)
+        count = lambda: gk.LAUNCHES
+    elif kernel == "C":
         scores = torch.from_numpy(np.stack([s for s, _, r in peaks_cases.cases(
         ).values() if r == peaks_cases.ROUNDS])).cuda()
         call = lambda: pk.suppress_peaks(scores, peaks_cases.DISTANCE,
@@ -895,3 +914,113 @@ def test_roofline_counts_the_same_bytes_on_the_card(clips):
         on_cpu = feature_roofline.count(fn, clips.cpu())
         assert ((on_card["bytes"], on_card["kernel_calls"])
                 == (on_cpu["bytes"], on_cpu["kernel_calls"])), name
+
+
+def _clone(out):
+    return tuple(t.clone() for t in out)
+
+
+def _nan_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
+
+
+@pytest.mark.parametrize("fused_gt", [False, True])
+@pytest.mark.parametrize("b", [1, 8, 128])
+def test_graph_replays_equal_eager(clips, b, fused_gt):
+    """extract_features_compiled's replays of two inputs in turn equal
+    extract_features (eager) bit for bit, NaN where NaN; the graph holds
+    kernels A twice, B or B'' and C once, and k replays add k times those
+    launches to the counters."""
+    from tpu_breath_torch import features, graphs
+    from tpu_breath_torch.config import DEFAULT_FEATURES as SPEC
+
+    g = torch.Generator(device="cuda").manual_seed(b)
+    base = torch.cat([clips, 0.05 * torch.randn(max(b, 16) - len(clips),
+                                                16000, generator=g,
+                                                device="cuda")])
+    xs = (base[:b].contiguous(), base.flip(0)[:b].contiguous())
+    eager = [_clone(features.extract_features(x, fused_gt=fused_gt))
+             for x in xs]
+    features.extract_features_compiled(xs[0], fused_gt=fused_gt)
+    graph = features._GRAPHS[(xs[0].device, (b, 16000), SPEC, fused_gt)]
+    before = graphs.read_launches()
+    got = [_clone(features.extract_features_compiled(x, fused_gt=fused_gt))
+           for x in (*xs, xs[0])]
+    after = graphs.read_launches()
+    for out, ref in zip(got, (*eager, eager[0])):
+        assert all(_nan_equal(o, r) for o, r in zip(out, ref))
+    assert graph.launches == {"A": 2, "B": 0 if fused_gt else 1, "B'": 0,
+                              "B''": 1 if fused_gt else 0, "C": 1, "D": 0}
+    assert {k: after[k] - before[k] for k in after} == {
+        k: 3 * n for k, n in graph.launches.items()}
+
+
+def _server():
+    from tpu_breath_torch import ensemble
+    from tpu_breath_torch.models import registry
+
+    models = [registry.build(a, 36, seed=0).cuda().eval()
+              for a in ("cnn8", "vgg")]
+    return ensemble.Server(models, ensemble.softmax_weights([0.79, 0.8]),
+                           device="cuda")
+
+
+def test_serve_graph_equals_eager(clips):
+    """A Server's replays (features + CNN8 + VGG under bf16 autocast + the
+    blend, micro-batches of 2, a tail of 1) give the eager composition's
+    probabilities bit for bit; one graph for the micro-batch size."""
+    from tpu_breath_torch import ensemble
+    from tpu_breath_torch.features import extract_features
+
+    server = _server()
+    wavs = clips[:5].cpu().numpy()  # golden wavs and noise: finite
+    got = server(wavs, micro_batch=2)
+    padded = torch.cat([clips[:5], torch.zeros_like(clips[:1])])
+    with torch.no_grad():
+        ref = torch.cat([ensemble.blend(server.models, server.weights,
+                                        *extract_features(padded[lo:lo + 2]))
+                         for lo in range(0, 6, 2)])[:5].cpu().numpy()
+    assert np.all(np.isfinite(got))
+    assert np.array_equal(got.astype(np.float32), ref)
+    assert len(server.graphs) == 1
+
+
+@pytest.mark.parametrize("path", ["precompute", "serve"])
+def test_replay_loop_waits_on_the_host_once(clips, path, monkeypatch):
+    """extract_features_batched (19 clips in chunks of 8) and a Server
+    (micro-batches of 2) queue their replays and copies without a host
+    synchronisation (torch's sync debug mode raises on one) until the one
+    wait that reads the results (graphs.wait, where the check ends); the
+    results equal the first call's."""
+    from tpu_breath_torch import graphs
+    from tpu_breath_torch.features import extract_features_batched
+
+    g = torch.Generator(device="cuda").manual_seed(19)
+    wavs = torch.cat([clips[:5], 0.05 * torch.randn(14, 16000, generator=g,
+                                                    device="cuda")]
+                     ).cpu().numpy()
+    if path == "precompute":
+        run = lambda: extract_features_batched(wavs, chunk=8, device="cuda")
+    else:
+        server = _server()
+        run = lambda: (server(wavs, micro_batch=2),)
+    first = run()  # captures the graph
+    waits = []
+    wait = graphs.wait
+
+    def final_wait(device):
+        torch.cuda.set_sync_debug_mode("default")
+        waits.append(device)
+        wait(device)
+
+    monkeypatch.setattr(graphs, "wait", final_wait)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(waits) == 1
+    for a, b in zip(first, again):
+        assert np.array_equal(a, b, equal_nan=True)

@@ -31,7 +31,7 @@ print(len(names))
 # every module of the port, so a new one cannot slip past the import check
 MODULES = {
     "augment", "cli", "config", "device", "ensemble", "features",
-    "__main__", "baseline", "baseline.dsp_np", "baseline.feature_np",
+    "graphs", "__main__", "baseline", "baseline.dsp_np", "baseline.feature_np",
     "data", "data.dataset",
     "data.wav", "models", "models.cnn8", "models.convert", "models.layers",
     "models.registry", "models.vgg", "ops", "ops.cepstral", "ops.chroma",

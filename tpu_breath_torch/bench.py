@@ -16,9 +16,11 @@ Parts, in order:
    (baseline/feature_np.process_clip) over --baseline-clips clips in one
    process started by spawn with one BLAS thread, before any device work:
    cpu_oracle_clips_per_s, the denominator of vs_baseline.
-2. Feature only (bench.py:70-96): extract_features over --n-clips clips
-   already on the device, in chunks of --chunk, then one synchronize. The
-   gammatone route follows TPU_BREATH_PALLAS_GT, as in every feature call.
+2. Feature only (bench.py:70-96): extract_features_compiled over
+   --n-clips clips already on the device, in chunks of --chunk (on the
+   card a replay of the chunk's CUDA graph, as precompute runs it), then
+   one synchronize. The gammatone route follows TPU_BREATH_PALLAS_GT, as
+   in every feature call.
 3. Fused CNN8 step (bench.py:98-137), the headline `value`: --steps steps
    at batch --batch, augmentation on, each fit's own step on the gathered
    wavs (train/loop.fit_step: fused_features in chunks of 128, augment.draw,
@@ -27,8 +29,10 @@ Parts, in order:
 4. Fused VGG step (bench.py:139-171): the same with VGG_TRAIN.
 5. Serve latency (tools/latency_probe.py): CNN8 and VGG built once, blended
    by softmax([0.79, 0.80]); a request is a wav array on the host ->
-   features -> both models -> probabilities on the host
-   (utils/path_times.serve_call), on the host clock after 5 warm-ups, at
+   features -> both models -> probabilities on the host, one micro-batch
+   of an ensemble.Server as serve_from_wav runs it (on the card one replay
+   of its CUDA graph; utils/path_times.serve_call), on the host clock
+   after 5 warm-ups (the capture among them), at
    B = 1 and 8: median and p90 over --serve-calls calls. The JAX probe
    chained iterations inside one jit to hide its relay's sync; here a
    request is timed as its user sees it.
@@ -89,8 +93,9 @@ from tpu_breath_torch.baseline import feature_np
 from tpu_breath_torch.config import (CNN8_TRAIN, DEFAULT_FEATURES, VGG_TRAIN,
                                      Paths)
 from tpu_breath_torch.device import resolve_device
-from tpu_breath_torch.ensemble import softmax_weights
-from tpu_breath_torch.features import extract_features
+from tpu_breath_torch.ensemble import Server, softmax_weights
+from tpu_breath_torch.features import (extract_features,
+                                       extract_features_compiled)
 from tpu_breath_torch.models import registry
 from tpu_breath_torch.train import loop
 from tpu_breath_torch.train.schedule import warmup_cosine
@@ -374,7 +379,7 @@ def measure(a: argparse.Namespace) -> dict:
 
     def feature_pass():
         for lo in range(0, a.n_clips, a.chunk):
-            extract_features(x[lo:lo + a.chunk], spec)
+            extract_features_compiled(x[lo:lo + a.chunk], spec)
     feat_rates = [a.n_clips / (t / 1e3)
                   for t in path_times.host_ms(feature_pass, a.repeats, 1,
                                               device)]
@@ -392,12 +397,12 @@ def measure(a: argparse.Namespace) -> dict:
                                       feat_flops_clip, device)
                 for arch, cfg in (("cnn8", CNN8_TRAIN), ("vgg", VGG_TRAIN))}
 
-    models = path_times.serve_models(("cnn8", "vgg"), device)
-    weights = softmax_weights(SERVE_VAL_SCORES)
+    server = Server(path_times.serve_models(("cnn8", "vgg"), device),
+                    softmax_weights(SERVE_VAL_SCORES), device=device)
     serve = {}
     for b in SERVE_BATCHES:
         ms = path_times.host_ms(
-            lambda: path_times.serve_call(models, weights, wavs[:b], device),
+            lambda: path_times.serve_call(server, wavs[:b]),
             a.serve_calls, SERVE_WARMUP, device)
         serve[str(b)] = {"calls": a.serve_calls,
                          "median": float(np.median(ms)),

@@ -1,6 +1,6 @@
 """Validation-accuracy-weighted sigmoid ensemble, from the feature cache or
-served from wavs, and the submission writer (counterpart of
-tpu_breath/ensemble.py)."""
+served from wavs (Server: one CUDA graph a micro-batch on the card), and
+the submission writer (counterpart of tpu_breath/ensemble.py)."""
 from __future__ import annotations
 
 import csv
@@ -9,9 +9,10 @@ import os
 import numpy as np
 import torch
 
+from tpu_breath_torch import graphs
 from tpu_breath_torch.config import DEFAULT_FEATURES
 from tpu_breath_torch.device import resolve_device
-from tpu_breath_torch.features import extract_features
+from tpu_breath_torch.features import extract_features, gt_switch
 from tpu_breath_torch.models import registry
 from tpu_breath_torch.train import checkpoint as ckpt_lib
 from tpu_breath_torch.train.loop import predict_logits
@@ -74,37 +75,92 @@ def average_ensemble(ckpt_paths, archs, feats, scals,
                              device=device)
 
 
-@torch.no_grad()
+def blend(models, weights, feats: torch.Tensor, scals: torch.Tensor
+          ) -> torch.Tensor:
+    """sum_m weights[m] * sigmoid(model_m(feats, scals)) [B] f32: the
+    serving program's model part (tpu_breath/ensemble.py::serve)."""
+    p = torch.zeros(feats.shape[0], dtype=torch.float32, device=feats.device)
+    for model, w in zip(models, weights):
+        p = p + float(w) * torch.sigmoid(model(feats, scals))
+    return p
+
+
+class Server:
+    """The JAX package's jitted `serve`: wavs -> features -> every model's
+    forward -> the weighted sigmoid blend, for models in eval mode on
+    `device`.
+
+    On the card each micro-batch is one replay of a CUDA graph that holds
+    the whole program (graphs.Graph), one graph per (micro_batch, fused_gt,
+    the global TF32/cuDNN flags), captured at its first use and kept while
+    the server lives. The micro-batches are queued (wavs up from pinned
+    memory, probabilities down into a pinned buffer) and the host waits
+    once, at the end. On the CPU the same program runs eagerly.
+    fused_gt follows TPU_BREATH_PALLAS_GT, read once a call."""
+
+    def __init__(self, models, weights, spec=None, device="cuda"):
+        self.models = list(models)
+        self.weights = [float(w) for w in weights]
+        self.spec = spec or DEFAULT_FEATURES
+        self.device = resolve_device(device)
+        self.graphs: dict = {}
+
+    def program(self, y: torch.Tensor, fused_gt: bool) -> torch.Tensor:
+        """One micro-batch y [B, n] on the device -> probabilities [B]."""
+        return blend(self.models, self.weights,
+                     *extract_features(y, self.spec, fused_gt))
+
+    @torch.no_grad()
+    def __call__(self, wavs: np.ndarray, micro_batch: int = 8
+                 ) -> np.ndarray:
+        """wavs[N, 16000] -> probabilities [N] (float64); the tail
+        micro-batch is zero-padded to micro_batch clips and the padding's
+        outputs dropped."""
+        n = wavs.shape[0]
+        n_pad = -(-n // micro_batch) * micro_batch
+        cuda = self.device.type == "cuda"
+        y = torch.zeros((n_pad, wavs.shape[1]), dtype=torch.float32,
+                        pin_memory=cuda)
+        y[:n] = torch.from_numpy(np.asarray(wavs, np.float32))
+        out = torch.empty(n_pad, dtype=torch.float32, pin_memory=cuda)
+        fused_gt = gt_switch()
+        key = (micro_batch, fused_gt, graphs.global_flags())
+        for lo in range(0, n_pad, micro_batch):
+            x = y[lo:lo + micro_batch]
+            if not cuda:
+                out[lo:lo + micro_batch] = self.program(x, fused_gt)
+                continue
+            graph = self.graphs.get(key)
+            if graph is None:
+                graph = self.graphs[key] = graphs.Graph(
+                    lambda t: self.program(t, fused_gt), x, self.device)
+            out[lo:lo + micro_batch].copy_(graph(x), non_blocking=True)
+        if cuda:
+            graphs.wait(self.device)
+        return out.numpy()[:n].astype(np.float64)
+
+
 def serve_from_wav(ckpt_paths, archs, val_scores, wavs: np.ndarray,
-                   spec=None, micro_batch: int = 8, device="cuda"
-                   ) -> np.ndarray:
-    """wavs[N, 16000] -> ensemble probabilities [N] (float64): per
-    micro-batch, features on `device`, every model's forward, and the
-    weighted sigmoid blend. The tail micro-batch is zero-padded to
-    micro_batch clips and the padding's outputs dropped."""
+                   spec=None, use_softmax: bool = True, micro_batch: int = 8,
+                   device="cuda") -> np.ndarray:
+    """Cache-free inference (tpu_breath/ensemble.py::serve_from_wav): wavs
+    [N, 16000] -> ensemble probabilities [N] (float64) through a Server of
+    the checkpoints' models, blended by softmax_weights(val_scores,
+    use_softmax), micro_batch clips a replay."""
     spec = spec or DEFAULT_FEATURES
     if not (len(ckpt_paths) == len(archs) == len(val_scores)):
         raise ValueError("one checkpoint, arch and val score per model")
     device = resolve_device(device)
     models = load_models(ckpt_paths, archs, spec.n_scalars, device)
-    weights = softmax_weights(val_scores)
-    n = wavs.shape[0]
-    out = np.empty(n, np.float64)
-    for lo in range(0, n, micro_batch):
-        hi = min(lo + micro_batch, n)
-        x = np.zeros((micro_batch, wavs.shape[1]), np.float32)
-        x[: hi - lo] = wavs[lo:hi]
-        f, s = extract_features(torch.from_numpy(x).to(device), spec)
-        p = torch.zeros(micro_batch, dtype=torch.float32, device=device)
-        for model, w in zip(models, weights):
-            p = p + float(w) * torch.sigmoid(model(f, s))
-        out[lo:hi] = p[: hi - lo].cpu().numpy()
-    return out
+    server = Server(models, softmax_weights(val_scores, use_softmax), spec,
+                    device)
+    return server(wavs, micro_batch)
 
 
-def write_submission(ids, probs, out_path: str) -> list[tuple[str, str]]:
-    """probs > 0.5 -> 'E' else 'I', written as an ID,Target csv."""
-    rows = [(str(i), "E" if p > 0.5 else "I")
+def write_submission(ids, probs, out_path: str, threshold: float = 0.5
+                     ) -> list[tuple[str, str]]:
+    """probs > threshold -> 'E' else 'I', written as an ID,Target csv."""
+    rows = [(str(i), "E" if p > threshold else "I")
             for i, p in zip(ids, probs)]
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     with open(out_path, "w", newline="") as f:

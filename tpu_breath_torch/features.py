@@ -8,6 +8,12 @@ The gammatone channel has two backends, as in the JAX package: kernel B on
 the shared round-once |STFT_512| (the default), or kernel B'' from the raw
 frames (fused_gt=True). Left unset, fused_gt is read from the JAX package's
 switch, TPU_BREATH_PALLAS_GT=1, at every call.
+
+extract_features runs the graph eagerly, op by op: it is the reference.
+extract_features_compiled is the JAX package's _extract_jit: on the card
+one captured CUDA graph per (device, shape, spec, fused_gt), replayed
+(graphs.py); extract_features_batched queues those replays chunk by chunk
+and waits on the host once.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ import os
 import numpy as np
 import torch
 
+from tpu_breath_torch import graphs
 from tpu_breath_torch.config import DEFAULT_FEATURES, FeatureSpec
 from tpu_breath_torch.device import resolve_device
 from tpu_breath_torch.ops import cepstral, chroma as chroma_ops
@@ -64,9 +71,48 @@ def extract_features(y: torch.Tensor, spec: FeatureSpec = DEFAULT_FEATURES,
     if y.dim() != 2:
         raise ValueError(f"y {tuple(y.shape)}: want [B, n_samples]")
     if fused_gt is None:
-        fused_gt = os.environ.get("TPU_BREATH_PALLAS_GT", "0") == "1"
+        fused_gt = gt_switch()
     with spectral.full_f32():
         return _extract(y.float(), spec, fused_gt)
+
+
+def gt_switch() -> bool:
+    """The JAX package's TPU_BREATH_PALLAS_GT switch, read now."""
+    return os.environ.get("TPU_BREATH_PALLAS_GT", "0") == "1"
+
+
+_GRAPHS: dict = {}
+
+
+@torch.no_grad()
+def extract_features_compiled(y: torch.Tensor,
+                              spec: FeatureSpec = DEFAULT_FEATURES,
+                              fused_gt: bool | None = None
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """extract_features as one CUDA graph replay
+    (tpu_breath/features.py::_extract_jit).
+
+    On the card: one graph per (device, y's shape, spec, fused_gt),
+    captured at the first call of that key after one eager warm call, kept
+    for the process. No global flag enters the key: the graph sets its own
+    TF32 switches (spectral.full_f32) and runs no cuDNN operation. A call
+    copies y into the graph's input buffer and replays it without waiting
+    on the host. It returns the graph's static output buffers, which the
+    next call of the same key overwrites: copy what you keep first.
+    Elsewhere (a CPU tensor) it is extract_features and returns new
+    tensors. fused_gt None reads TPU_BREATH_PALLAS_GT now, as the JAX
+    package passes it as a static argument."""
+    if fused_gt is None:
+        fused_gt = gt_switch()
+    if y.device.type != "cuda":
+        return extract_features(y, spec, fused_gt)
+    key = (y.device, tuple(y.shape), spec, fused_gt)
+    graph = _GRAPHS.get(key)
+    if graph is None:
+        graph = _GRAPHS[key] = graphs.Graph(
+            lambda x: extract_features(x, spec, fused_gt), y.float(),
+            y.device)
+    return graph(y)
 
 
 def _extract(y: torch.Tensor, spec: FeatureSpec, fused_gt: bool
@@ -132,23 +178,39 @@ def extract_features_batched(wavs: np.ndarray,
                              fused_gt: bool | None = None
                              ) -> tuple[np.ndarray, np.ndarray]:
     """wavs[N, 16000] -> numpy (features [N, 9, 128, 63], scalars [N, 36]),
-    in chunks of `chunk` clips on `device`; under a data-parallel mesh
-    (parallel/mesh.py) the ranks share the chunks (_extract_sharded) and
-    every rank returns the whole arrays. fused_gt as extract_features."""
+    in chunks of `chunk` clips on `device`, the tail chunk padded with
+    silence to `chunk` clips (one shape, as the JAX package pads it) and
+    its padding dropped. On the card each chunk is a replay of
+    extract_features_compiled's graph: its wavs go up from pinned memory,
+    its outputs down into pinned buffers, all queued on the current stream,
+    and the host waits once, at the end. Under a data-parallel mesh
+    (parallel/mesh.py) the ranks share the chunks (_extract_sharded,
+    eager) and every rank returns the whole arrays. fused_gt as
+    extract_features, read once a call."""
     if mesh is not None:
         return _extract_sharded(wavs, spec, chunk, mesh, fused_gt)
     device = resolve_device(device)
+    if fused_gt is None:
+        fused_gt = gt_switch()
     n = wavs.shape[0]
-    feats_out = np.empty((n, spec.n_channels, spec.n_mels, spec.t_fixed),
-                         np.float32)
-    scal_out = np.empty((n, spec.n_scalars), np.float32)
-    for lo in range(0, n, chunk):
-        hi = min(lo + chunk, n)
-        y = torch.from_numpy(np.ascontiguousarray(wavs[lo:hi], np.float32))
-        f, s = extract_features(y.to(device), spec, fused_gt)
-        feats_out[lo:hi] = f.cpu().numpy()
-        scal_out[lo:hi] = s.cpu().numpy()
-    return feats_out, scal_out
+    n_pad = -(-n // chunk) * chunk
+    cuda = device.type == "cuda"
+    y = torch.zeros((n_pad, wavs.shape[1]), dtype=torch.float32,
+                    pin_memory=cuda)
+    y[:n] = torch.from_numpy(np.asarray(wavs, np.float32))
+    feats = torch.empty((n_pad, spec.n_channels, spec.n_mels, spec.t_fixed),
+                        dtype=torch.float32, pin_memory=cuda)
+    scals = torch.empty((n_pad, spec.n_scalars), dtype=torch.float32,
+                        pin_memory=cuda)
+    for lo in range(0, n_pad, chunk):
+        x = y[lo:lo + chunk]
+        f, s = extract_features_compiled(x.to(device, non_blocking=True)
+                                         if cuda else x, spec, fused_gt)
+        feats[lo:lo + chunk].copy_(f, non_blocking=True)
+        scals[lo:lo + chunk].copy_(s, non_blocking=True)
+    if cuda:
+        graphs.wait(device)
+    return feats.numpy()[:n], scals.numpy()[:n]
 
 
 def _extract_sharded(wavs: np.ndarray, spec: FeatureSpec, chunk: int,

@@ -236,7 +236,11 @@ class Classifier(nn.Module):
     def forward(self, features: torch.Tensor, scalars: torch.Tensor
                 ) -> torch.Tensor:
         dev = features.device.type
-        with (torch.autocast("cuda", dtype=torch.bfloat16)
+        # under a CUDA graph capture the weights' bf16 casts are captured
+        # with the rest, not cached across it (the same casts either way)
+        with (torch.autocast("cuda", dtype=torch.bfloat16,
+                             cache_enabled=not
+                             torch.cuda.is_current_stream_capturing())
               if dev == "cuda" and self.bf16 else contextlib.nullcontext()):
             z = self._body(features, scalars)
         with torch.autocast(dev, enabled=False):

@@ -46,7 +46,7 @@ from tpu_breath_torch import augment
 from tpu_breath_torch.config import FeatureSpec, TrainCfg
 from tpu_breath_torch.data import loader
 from tpu_breath_torch.device import resolve_device
-from tpu_breath_torch.features import extract_features
+from tpu_breath_torch.features import extract_features_compiled
 from tpu_breath_torch.models import layers
 from tpu_breath_torch.parallel import mesh as mesh_lib
 from tpu_breath_torch.train import checkpoint as ckpt_lib
@@ -205,15 +205,22 @@ def _snapshot(model: nn.Module) -> dict:
 def fused_features(wavs: torch.Tensor, spec: FeatureSpec, chunk: int = 128
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """The fused step's features of a gathered batch wavs [b, n]: chunks of
-    `chunk` clips (precompute's geometry) when b is a larger multiple of
-    it, else one call (tpu_breath/train/loop.py::_maybe_fused_features)."""
+    `chunk` clips (precompute's geometry, and on the card precompute's
+    captured graph) when b is a larger multiple of it, else one call
+    (tpu_breath/train/loop.py::_maybe_fused_features). On the card each
+    call is a replay of extract_features_compiled's graph, its outputs
+    copied out before the next; nothing waits on the host."""
     b = wavs.shape[0]
-    if b > chunk and b % chunk == 0:
-        parts = [extract_features(wavs[lo:lo + chunk], spec)
-                 for lo in range(0, b, chunk)]
-        return (torch.cat([f for f, _ in parts]),
-                torch.cat([s for _, s in parts]))
-    return extract_features(wavs, spec)
+    if not (b > chunk and b % chunk == 0):
+        chunk = b
+    feats = torch.empty((b, spec.n_channels, spec.n_mels, spec.t_fixed),
+                        device=wavs.device)
+    scals = torch.empty((b, spec.n_scalars), device=wavs.device)
+    for lo in range(0, b, chunk):
+        f, s = extract_features_compiled(wavs[lo:lo + chunk], spec)
+        feats[lo:lo + chunk].copy_(f)
+        scals[lo:lo + chunk].copy_(s)
+    return feats, scals
 
 
 def fit_step(model: nn.Module, optimizer: torch.optim.Optimizer, lr: float,

@@ -7,7 +7,9 @@ For each stage:
 - wall_ms: all chunks of --chunk clips, one stage call a chunk, by CUDA
   events (profiling._elapsed_ms; the host clock on the CPU), the median of
   3 runs after one warm-up run, under spectral.full_f32() as the feature
-  graph runs;
+  graph runs; eagerly, op by op, not as precompute's captured graph
+  (features.extract_features_compiled), since a graph replays the whole
+  stack and hides its stages;
 - gflops: bench.counted_flops (convolutions, mm, bmm, FFTs; no elementwise
   work) of one chunk on the CPU plain path, kernel B's route whatever
   TPU_BREATH_PALLAS_GT says, times the chunks: `full` at B = 8 is

@@ -3,24 +3,21 @@ metrics that PERF.md §2 names before a benchmark defines them:
 
 - serve: one micro-batch of 8 clips, a wav array on the host -> features
   -> CNN8 (random weights from a seed, built once) -> sigmoid
-  probabilities on the host, as serve_from_wav runs each micro-batch;
+  probabilities on the host, through an ensemble.Server as serve_from_wav
+  runs each micro-batch (on the card: one replay of its CUDA graph);
   median and p90 over 40 calls, and the median of its model part alone
-  (CNN8 on features already on the device);
+  (CNN8 on features already on the device, eager);
 - extract_features at B = 8 and B = 128, one call and a synchronize:
-  median over 20 calls;
+  median over 20 calls, eager, and as extract_features_compiled's replay
+  (`extract_features_graph_ms`);
 - precompute: extract_features_batched over 1,536 clips in chunks of 128:
   clips/s, the median of 3 runs.
 
-All on the host clock, after warm-up calls. TPU_BREATH_PALLAS_GT selects
-the gammatone kernel as it does for every feature call. Prints one JSON
-line.
+All on the host clock, after warm-up calls (the graphs are captured in
+them). TPU_BREATH_PALLAS_GT selects the gammatone kernel as it does for
+every feature call. Prints one JSON line.
 
     python -m tpu_breath_torch.utils.path_times [--device cpu]
-
-It calls nothing newer than the serving and training slices
-(extract_features, extract_features_batched, models.registry), so an
-earlier checkout of the package is timed by the same code when this file
-is copied into it: two versions compared on one card in one call.
 """
 from __future__ import annotations
 
@@ -34,8 +31,10 @@ import torch
 
 from tpu_breath_torch.config import DEFAULT_FEATURES
 from tpu_breath_torch.device import resolve_device
+from tpu_breath_torch.ensemble import Server
 from tpu_breath_torch.features import (extract_features,
-                                       extract_features_batched)
+                                       extract_features_batched,
+                                       extract_features_compiled)
 from tpu_breath_torch.models import registry
 
 
@@ -74,26 +73,19 @@ def serve_models(archs, device) -> list[torch.nn.Module]:
             .to(device).eval() for a in archs]
 
 
-@torch.no_grad()
-def serve_call(models, weights, wavs: np.ndarray, device) -> np.ndarray:
-    """One serving request: a wav array [B, 16000] on the host -> features
-    on device -> every model -> sum_m weights[m] * sigmoid(logits_m) ->
-    probabilities [B] (f32) on the host."""
-    f, s = extract_features(torch.from_numpy(wavs).to(device),
-                            DEFAULT_FEATURES)
-    p = torch.zeros(wavs.shape[0], device=device)
-    for model, w in zip(models, weights):
-        p = p + float(w) * torch.sigmoid(model(f, s))
-    return p.float().cpu().numpy()
+def serve_call(server: Server, wavs: np.ndarray) -> np.ndarray:
+    """One serving request: a wav array [B, 16000] on the host -> the
+    server's program as one micro-batch of B -> probabilities [B] on the
+    host (serve_from_wav's path)."""
+    return server(wavs, micro_batch=wavs.shape[0])
 
 
 def serve_ms(device, reps: int, micro: int = 8, warmup: int = 5
              ) -> list[float]:
     """ms of one serving micro-batch, wav array -> CNN8 -> probabilities."""
-    models = serve_models(("cnn8",), device)
+    server = Server(serve_models(("cnn8",), device), (1.0,), device=device)
     wavs = clips(micro, seed=1)
-    return host_ms(lambda: serve_call(models, (1.0,), wavs, device), reps,
-                   warmup, device)
+    return host_ms(lambda: serve_call(server, wavs), reps, warmup, device)
 
 
 @torch.no_grad()
@@ -109,10 +101,11 @@ def serve_model_ms(device, reps: int, micro: int = 8, warmup: int = 5
                    reps, warmup, device)
 
 
-def features_ms(device, b: int, iters: int, warmup: int = 3) -> list[float]:
+def features_ms(device, b: int, iters: int, warmup: int = 3,
+                compiled: bool = False) -> list[float]:
     y = torch.from_numpy(clips(b, seed=b)).to(device)
-    return host_ms(lambda: extract_features(y, DEFAULT_FEATURES), iters,
-                   warmup, device)
+    fn = extract_features_compiled if compiled else extract_features
+    return host_ms(lambda: fn(y, DEFAULT_FEATURES), iters, warmup, device)
 
 
 def precompute_clips_per_s(device, n: int, runs: int, chunk: int = 128
@@ -133,8 +126,9 @@ def measure(device="cuda", reps: int = 40, iters: int = 20,
     device = resolve_device(device)
     serve = serve_ms(device, reps, micro, warmup)
     model = serve_model_ms(device, reps, micro, warmup)
-    feats = {b: features_ms(device, b, iters, min(warmup, 3))
-             for b in batches}
+    feats = {(b, compiled): features_ms(device, b, iters, min(warmup, 3),
+                                        compiled)
+             for b in batches for compiled in (False, True)}
     pre = precompute_clips_per_s(device, n_clips, runs)
     return {
         "device": (torch.cuda.get_device_name(device)
@@ -144,9 +138,10 @@ def measure(device="cuda", reps: int = 40, iters: int = 20,
                      "median": float(np.median(serve)),
                      "p90": float(np.percentile(serve, 90)),
                      "model_median": float(np.median(model))},
-        "extract_features_ms": {str(b): {"n": iters,
-                                         "median": float(np.median(v))}
-                                for b, v in feats.items()},
+        **{key: {str(b): {"n": iters, "median": float(np.median(v))}
+                 for (b, compiled), v in feats.items() if compiled == c}
+           for key, c in (("extract_features_ms", False),
+                          ("extract_features_graph_ms", True))},
         "precompute": {"clips": n_clips, "runs": pre,
                        "clips_per_s": float(np.median(pre))},
     }

@@ -11,7 +11,11 @@ tpu_breath/utils/profiling.py), behind the CLI's --profile:
   train_profile.json.
 
 Times on the card come from CUDA events around all chunks of a stage; on
-the CPU (device='cpu') from the host clock, and the JSON says which.
+the CPU (device='cpu') from the host clock, and the JSON says which. The
+stages run eagerly (extract_features and its subgraphs), not as the
+captured graph that precompute replays (features.extract_features_compiled):
+a graph replays the whole feature stack at once, so it has no stages to
+time.
 """
 from __future__ import annotations
 
