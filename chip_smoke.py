@@ -30,10 +30,22 @@ no result line):
      replay adding its graph's launches; a Server of CNN8 + VGG bit-equal
      to the eager composition at micro-batches of 1 and 8; then eager and
      graphed in turns: serve at B = 1 and 8, extract_features_batched over
-     2,048 clips, the bench's split pieces `features` and `fused`, the
-     profiler's busy share of a serve call and a fused CNN8 step, each
-     graph's capture time and pool; printed as {"graphs": ...}. Every
-     later phase runs the graphed path (features, serve, fused steps);
+     2,048 clips, the bench's split piece `features`, the profiler's
+     busy share of a serve call, each graph's capture time and pool;
+     printed as {"graphs": ...}. Every later phase runs the graphed path
+     (features, serve, train and eval steps);
+  steps. fit's step and evaluation programs (loop.TrainStep,
+     loop.Predictor) as CUDA graphs against the same programs eager
+     (graphs.eager()), batch 512 on the bench's seeded clips: (i) CNN8 and
+     VGG, cached and fused (kernel B), 8 steps from one seeded state each
+     way, augmentation on: losses, accuracies, every parameter and
+     buffer, both moments and the step count bit-equal, the fused graph
+     holding A 8 / B 4 / C 4; (ii) in turns: ms a step (CUDA events), the
+     host's ms to queue one, one traced step (kernels, host launches,
+     busy share; a replay's kernels inside its train_step range), an
+     evaluation of 256 rows in a padded batch of 1,024 (logits
+     bit-equal), each graph's capture time and pool; printed as
+     {"steps": ...};
   parity. the parity sweep (utils/parity_sweep.py) on 512 seeded clips
      (the golden wavs and shifts of them at seeded gains, silence, an
      impulse, quantized plateaus, noise), 128 of them through the port's
@@ -75,8 +87,11 @@ no result line):
      bit-equal weights on both ranks; A, B'', C and A, B, C launch in each
      rank; ms per step on the host clock;
   8. profile: precompute --profile (stages, slowest first) and train
-     --fused --archs cnn8 --epochs 2 --profile (the top device operations
-     of the fused steps, from the trace);
+     --fused --archs cnn8 --epochs 2 --profile: 4 train_step spans on the
+     device (the first step eager, with its fused_features span; the
+     other three replays, every kernel of a replay inside its step's
+     span), the top device operations of the replayed steps, kernels A,
+     B'', C among them;
   bench. the port's bench (tpu_breath_torch/bench.py) at its defaults
      (2,048 seeded clips, chunk 128, batch 512, 8 steps, 24 oracle clips,
      5 repeats): its line printed as {"bench": ...}; every rate and latency
@@ -91,12 +106,12 @@ no result line):
      ensemble_val on phase 6's checkpoints; deviation_sweep folded into a
      parity sweep by --deviations; find_flips on the parity phase's clips;
   9. timings: extract_features (B = 8 / 128), one serve call and the
-     serve micro-batch's median and p90 over 40 calls, one train step of
-     CNN8 and of VGG at batch 512 (CUDA events), cached and fused
-     (features and model apart), epoch wall times and precompute clips/s;
- 10. the kernels JSON line (launches by path: serve, e2e, repro, fused,
-     mesh, parity, bench, tools; a graph's replay counts the kernels it
-     holds), then the last line: {"ok": true, "device": {...}}.
+     serve micro-batch's median and p90 over 40 calls, the train steps of
+     CNN8 and VGG at batch 512 (the steps phase's replays), epoch wall
+     times and precompute clips/s;
+ 10. the kernels JSON line (launches by path: steps, serve, e2e, repro,
+     fused, mesh, parity, bench, tools; a graph's replay counts the
+     kernels it holds), then the last line: {"ok": true, "device": {...}}.
 
 With --cards N (N cards): phases 1 and 2, then the seeded dataset's
 precompute in one process and mesh_runs over N ranks, one a card over
@@ -133,6 +148,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SR = 16000
 MICRO = 8
 CHUNK = 128
+STEP_BATCH = 512  # the configs' batch size
+STEPS = 8
 # kernel -> max abs err against its plain version: the JAX package's test
 # tolerances (tests/test_pallas_epilogue.py), 1e-5 for the float64
 # variants, 5e-5 for the f32 one
@@ -525,12 +542,11 @@ def phase_graphs(smi: str) -> dict:
     in turns (eager, graph, graph, eager): serve at B = 1 and 8 (host
     clock, 40 calls each), extract_features_batched over the bench's 2,048
     clips in chunks of 128 (clips/s, 5 runs each), the bench's split
-    pieces `features` and `fused` at batch 512 for CNN8 and VGG (CUDA
-    events, 2 rounds of 8 launches each), and the profiler's device-busy
-    share of one serve call (B = 8) and one fused CNN8 step; then each
-    graph's capture time and pool. Prints {"graphs": ...}."""
+    piece `features` at batch 512 (CUDA events, 2 rounds of 8 launches
+    each), and the profiler's device-busy share of one serve call (B = 8);
+    then each graph's capture time and pool. (The train and eval steps'
+    graphs: phase_steps.) Prints {"graphs": ...}."""
     from tpu_breath_torch import bench, ensemble, features
-    from tpu_breath_torch.train import loop
     from tpu_breath_torch.utils import path_times
 
     t0 = time.perf_counter()
@@ -660,69 +676,44 @@ def phase_graphs(smi: str) -> dict:
     return res
 
 
-@contextlib.contextmanager
-def eager_features():
-    """loop.fused_features through extract_features (eager) instead of the
-    captured graph: the eager side of a comparison."""
-    from tpu_breath_torch import features
-    from tpu_breath_torch.train import loop
-
-    saved = loop.extract_features_compiled
-    loop.extract_features_compiled = features.extract_features
-    try:
-        yield
-    finally:
-        loop.extract_features_compiled = saved
-
-
 def _graph_split(wavs: np.ndarray) -> dict:
-    """The bench's split pieces `features` and `fused` at batch 512 for
-    CNN8 and VGG, eager and graphed in turns, inside fit's reproducible
-    scope: ms a launch by CUDA events, 2 rounds of 8 launches each way."""
-    from tpu_breath_torch import bench
-    from tpu_breath_torch.config import CNN8_TRAIN, DEFAULT_FEATURES, VGG_TRAIN
+    """The bench's split piece `features` at batch 512 (its 4 chunks of
+    128), eager (graphs.eager()) and graphed in turns: ms a launch by CUDA
+    events, 2 rounds of 8 launches each way."""
+    from tpu_breath_torch import bench, graphs
+    from tpu_breath_torch.config import CNN8_TRAIN, DEFAULT_FEATURES
     from tpu_breath_torch.models import registry
     from tpu_breath_torch.train import loop
 
-    out = {}
     w = torch.from_numpy(wavs[:512]).cuda()
     y = torch.from_numpy(np.tile(np.float32([0.0, 1.0]), 256)).cuda()
-    with loop.reproducible():
-        for arch, cfg in (("cnn8", CNN8_TRAIN), ("vgg", VGG_TRAIN)):
-            cfg = dataclasses.replace(cfg, batch_size=512)
-            model = registry.build(arch, 36, seed=0).cuda()
-            opt = loop.make_optimizer(model, cfg)
-            gen = torch.Generator(device="cuda").manual_seed(1)
-            pieces = bench.split_pieces(model, opt, cfg, DEFAULT_FEATURES, w,
-                                        y, 1e-4, gen)
-            ms = {(p, g): [] for p in ("features", "fused")
-                  for g in (False, True)}
-            for graphed in (False, True, True, False):
-                with (contextlib.nullcontext() if graphed
-                      else eager_features()):
-                    for p in ("features", "fused"):
-                        ms[p, graphed] += bench.event_ms(pieces[p], 8, 1,
-                                                         torch.device("cuda"))
-            out[arch] = {p: {mode: float(np.median(ms[p, g]))
-                             for mode, g in (("eager", False),
-                                             ("graph", True))}
-                         for p in ("features", "fused")}
-            log(f"[graphs] (c) {arch} batch 512, ms a launch (CUDA events, "
-                f"2 rounds of 8 each way, in turns): features eager "
-                f"{out[arch]['features']['eager']:.2f} / graph "
-                f"{out[arch]['features']['graph']:.2f}; fused step eager "
-                f"{out[arch]['fused']['eager']:.2f} / graph "
-                f"{out[arch]['fused']['graph']:.2f}")
-            del model, opt, pieces
+    model = registry.build("cnn8", 36, seed=0).cuda()
+    features = bench.split_pieces(
+        model, loop.make_optimizer(model, CNN8_TRAIN), CNN8_TRAIN,
+        DEFAULT_FEATURES, w, y, 1e-4,
+        torch.Generator(device="cuda").manual_seed(1))["features"]
+    ms = {False: [], True: []}
+    for graphed in (False, True, True, False):
+        with contextlib.nullcontext() if graphed else graphs.eager():
+            ms[graphed] += bench.event_ms(features, 8, 1,
+                                          torch.device("cuda"))
+    out = {"features": {mode: float(np.median(ms[g]))
+                        for mode, g in (("eager", False), ("graph", True))}}
+    log(f"[graphs] (c) features of a batch of 512 (4 chunks of 128), ms a "
+        f"launch (CUDA events, 2 rounds of 8 each way, in turns): eager "
+        f"{out['features']['eager']:.2f} / graph "
+        f"{out['features']['graph']:.2f}")
     return out
 
 
-def _busy(fn) -> dict:
+def _busy(fn, with_host: bool = False) -> dict:
     """One call of fn under torch.profiler after two warm calls: its
     device kernels' time (overlaps merged), their count, the span from the
     first kernel's start to the last one's end, the host clock's wall time
     of the call (synchronized) and the busy shares of the span and of the
-    wall time."""
+    wall time. with_host: also the launches the host made (CUDA API calls
+    that launch a kernel or a graph), its copies, and the
+    kernels inside a `train_step` range's device span."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(), fn()
@@ -745,45 +736,296 @@ def _busy(fn) -> dict:
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
     span = (ks[-1][1] - ks[0][0]) if ks else 0.0
-    return {"kernels": len(ks), "device_ms": busy / 1e3,
-            "span_ms": span / 1e3, "wall_ms": wall_us / 1e3,
-            "busy_of_span": busy / span if span else None,
-            "busy_of_wall": busy / wall_us}
+    out = {"kernels": len(ks), "device_ms": busy / 1e3,
+           "span_ms": span / 1e3, "wall_ms": wall_us / 1e3,
+           "busy_of_span": busy / span if span else None,
+           "busy_of_wall": busy / wall_us}
+    if with_host:
+        api = [e["name"] for e in events
+               if e.get("cat", "").startswith("cuda_")]
+        ranges = [(e["ts"], e["ts"] + e["dur"]) for e in events
+                  if e.get("cat") == "gpu_user_annotation"
+                  and e.get("name") == "train_step"]
+        out.update({
+            "host_api": sorted(set(api)),
+            "host_launches": sum("Launch" in n for n in api),
+            "host_copies": sum("Memcpy" in n or "Memset" in n for n in api),
+            "in_range": sum(any(r0 <= a and b <= r1 for r0, r1 in ranges)
+                            for a, b in ks)})
+    return out
 
 
 def _busy_shares(server, eager_serve) -> dict:
-    """_busy of one serve call (CNN8 + VGG, B = 8) and of one fused CNN8
-    step (batch 512), eager and graphed."""
-    from tpu_breath_torch.config import CNN8_TRAIN, DEFAULT_FEATURES
-    from tpu_breath_torch.models import registry
-    from tpu_breath_torch.train import loop
+    """_busy of one serve call (CNN8 + VGG, B = 8), eager and graphed."""
     from tpu_breath_torch.utils import path_times
 
     w = path_times.clips(MICRO, seed=1)
     out = {"serve_eager": _busy(lambda: eager_serve(w)),
            "serve_graph": _busy(lambda: path_times.serve_call(server, w))}
-    cfg = CNN8_TRAIN
-    x = torch.from_numpy(path_times.clips(cfg.batch_size, seed=2)).cuda()
-    labels = torch.from_numpy(np.tile(np.float32([0.0, 1.0]),
-                                      cfg.batch_size // 2)).cuda()
-    model = registry.build("cnn8", 36, seed=0).cuda()
-    opt = loop.make_optimizer(model, cfg)
-    gen = torch.Generator(device="cuda").manual_seed(1)
-
-    def step():
-        loop.fit_step(model, opt, 1e-4, (x, labels), None, cfg, gen, True,
-                      DEFAULT_FEATURES)
-
-    with loop.reproducible():
-        with eager_features():
-            out["fused_cnn8_eager"] = _busy(step)
-        out["fused_cnn8_graph"] = _busy(step)
     for name, r in out.items():
         log(f"[graphs] (c) busy {name}: {r['device_ms']:.3f} ms of device "
             f"time in {r['kernels']} kernels, span {r['span_ms']:.3f} ms "
             f"(busy {r['busy_of_span'] or 0:.1%}), wall {r['wall_ms']:.3f} "
             f"ms (busy {r['busy_of_wall']:.1%})")
     return out
+
+
+STEP_KEYS = ("cnn8", "vgg")
+
+
+def _state(model, opt) -> dict:
+    """Every parameter and buffer, both moments and the step count."""
+    out = {f"model.{k}": v for k, v in model.state_dict().items()}
+    for i, p in enumerate(model.parameters()):
+        for k in ("exp_avg", "exp_avg_sq"):
+            out[f"opt.{i}.{k}"] = opt.state[p][k]
+    out["opt.count"] = opt.count
+    return out
+
+
+def _programs(arch: str, fused: bool, data: dict):
+    """Two step programs (loop.TrainStep) of `arch` at batch 512 from one
+    seeded state: each its own model (seed 0), optimizer and augmentation
+    generator (seed 1), on the cached features or the wavs of data."""
+    from tpu_breath_torch.config import CNN8_TRAIN, DEFAULT_FEATURES, VGG_TRAIN
+    from tpu_breath_torch.models import registry
+    from tpu_breath_torch.train import loop
+
+    cfg = dataclasses.replace({"cnn8": CNN8_TRAIN, "vgg": VGG_TRAIN}[arch],
+                              batch_size=STEP_BATCH)
+    out = []
+    for _ in range(2):
+        model = registry.build(arch, 36, seed=0).cuda()
+        opt = loop.make_optimizer(model, cfg)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        train = ((data["wavs"], data["labels"]) if fused
+                 else (data["feats"], data["scals"], data["labels"]))
+        out.append((model, opt, loop.TrainStep(
+            model, opt, train, cfg, gen, DEFAULT_FEATURES if fused else None)))
+    return out
+
+
+def _drive(step, data: dict, steps: int) -> tuple[list, list]:
+    """steps calls of step on data's rows and rates, augmentation on, the
+    dropout generator seeded first; (losses, accuracies) as floats."""
+    torch.manual_seed(2)
+    losses, accs = [], []
+    for s in range(steps):
+        loss, acc = step(data["rows"][s], data["lrs"][s], data["on"])
+        losses.append(loss.clone())
+        accs.append(acc.clone())
+    return torch.stack(losses).tolist(), torch.stack(accs).tolist()
+
+
+def _queue_ms(fn, n: int = 8) -> list[float]:
+    """Host ms to queue one call of fn (no wait inside), n calls, each
+    after a synchronize."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return out
+
+
+def _traced(fn) -> dict:
+    """_busy of one call of fn inside record_function("train_step"), plus
+    the launches the host made (CUDA API calls that launch,
+    graph launches included) and the kernels inside the range's device
+    span (all of them must be: a replay's kernels belong to its range)."""
+    from torch.profiler import record_function
+
+    def call():
+        with record_function("train_step"):
+            fn()
+
+    return _busy(call, with_host=True)
+
+
+def phase_steps(smi: str) -> dict:
+    """fit's step and evaluation programs (loop.TrainStep, loop.Predictor)
+    graphed against eager, at batch 512 on the bench's seeded clips
+    (bench.noise(1024), labels alternating, cached features from
+    extract_features_batched), TPU_BREATH_PALLAS_GT unset (kernel B):
+    (i) for CNN8 and VGG, cached and fused, two programs from one seeded
+    state run 8 steps each, augmentation on, one eager (graphs.eager()) and
+    one graphed: losses, accuracies, every parameter and buffer, both
+    moments and the step count bit-equal; the fused graph holds A 8, B 4,
+    C 4 (4 chunks of 128); (ii) eager and graphed in turns (eager, graph,
+    graph, eager): ms a step by CUDA events (8 steps a turn), the host's
+    ms to queue one step, the profiler's record of one step (kernels on
+    the device, launches made by the host, busy share of the span; every
+    kernel of a replay inside its train_step range), an evaluation
+    (loop.evaluate) of a validation split of phase 6's size (256 rows,
+    eval batch 1,024, the tail padded) on the host clock, and each graph's
+    capture seconds and pool bytes. Prints {"steps": ...}; returns the
+    phase's launches."""
+    from tpu_breath_torch import bench, graphs
+    from tpu_breath_torch.features import extract_features_batched
+    from tpu_breath_torch.train import loop
+    from tpu_breath_torch.train.schedule import warmup_cosine
+
+    t0 = time.perf_counter()
+    reset_launches()
+    wavs = bench.noise(2 * STEP_BATCH)
+    f, s = extract_features_batched(wavs, chunk=CHUNK)
+    rng = np.random.default_rng(0)
+    lr = warmup_cosine(1e-3, 100)
+    data = {"wavs": torch.from_numpy(wavs).cuda(),
+            "feats": torch.from_numpy(f).cuda(),
+            "scals": torch.from_numpy(s).cuda(),
+            "labels": torch.from_numpy(np.tile(np.float32([0.0, 1.0]),
+                                               STEP_BATCH)).cuda(),
+            "rows": torch.from_numpy(np.stack(
+                [rng.permutation(2 * STEP_BATCH)[:STEP_BATCH]
+                 for _ in range(3 * STEPS)])).cuda(),
+            "lrs": torch.tensor([lr(k) for k in range(3 * STEPS)],
+                                dtype=torch.float32).cuda(),
+            "on": torch.ones((), dtype=torch.bool).cuda()}
+    res: dict = {"device": smi, "batch": STEP_BATCH, "steps": STEPS,
+                 "i": {}, "ms": {}, "queue_ms": {}, "trace": {},
+                 "pools": []}
+    failed = []
+    with loop.reproducible():
+        for arch in STEP_KEYS:
+            for mode in ("cached", "fused"):
+                name = f"{arch} {mode}"
+                (me, oe, se), (mg, og, sg) = _programs(arch, mode == "fused",
+                                                       data)
+                # (i) one program, eager and graphed, from one state
+                with graphs.eager():
+                    le, ae = _drive(se, data, STEPS)
+                lg, ag = _drive(sg, data, STEPS)
+                a, b = _state(me, oe), _state(mg, og)
+                diff = {k: float((a[k].double() - b[k].double()).abs().max())
+                        for k in a if not torch.equal(a[k], b[k])}
+                graph = next(iter(sg.graphs.values()))
+                row = {"losses_equal": le == lg, "accs_equal": ae == ag,
+                       "tensors": len(a), "unequal": diff,
+                       "launches_a_replay": graph.launches,
+                       "losses": lg}
+                res["i"][name] = row
+                log(f"[steps] (i) {name}, {STEPS} steps eager vs graphed: "
+                    f"losses equal {row['losses_equal']}, accuracies equal "
+                    f"{row['accs_equal']}, {len(a) - len(diff)} of {len(a)} "
+                    f"tensors (parameters, buffers, moments, count) "
+                    f"bit-equal{'' if not diff else f'; max |diff| {diff}'};"
+                    f" graph launches a replay {graph.launches}")
+                want = ({"A": 8, "B": 4, "C": 4} if mode == "fused" else {})
+                if not (row["losses_equal"] and row["accs_equal"]
+                        and not diff) or {k: v for k, v in
+                                          graph.launches.items() if v} != want:
+                    failed.append(name)
+                # (ii) eager and graphed in turns, on the programs above
+                ms = {False: [], True: []}
+                queue = {False: [], True: []}
+                for graphed in (False, True, True, False):
+                    step = sg if graphed else se
+                    k = {"n": 0}
+
+                    def call():
+                        step(data["rows"][STEPS + k["n"] % STEPS],
+                             data["lrs"][STEPS + k["n"] % STEPS], data["on"])
+                        k["n"] += 1
+                    with (contextlib.nullcontext() if graphed
+                          else graphs.eager()):
+                        ms[graphed].append(cuda_ms(call, iters=STEPS,
+                                                   warmup=1))
+                        queue[graphed] += _queue_ms(call, 4)
+                with graphs.eager():
+                    trace_e = _traced(lambda: se(data["rows"][0],
+                                                 data["lrs"][0], data["on"]))
+                trace_g = _traced(lambda: sg(data["rows"][0], data["lrs"][0],
+                                             data["on"]))
+                res["ms"][name] = {m: {"median": float(np.median(ms[g])),
+                                       "runs": ms[g]}
+                                   for m, g in (("eager", False),
+                                                ("graph", True))}
+                res["queue_ms"][name] = {
+                    m: float(np.median(queue[g]))
+                    for m, g in (("eager", False), ("graph", True))}
+                res["trace"][name] = {"eager": trace_e, "graph": trace_g}
+                res["pools"].append({"graph": f"step {name}",
+                                     "capture_s": graph.capture_s,
+                                     "pool_bytes": graph.pool_bytes})
+                log(f"[steps] (ii) {name}, ms a step (CUDA events, "
+                    f"{STEPS} steps a turn, in turns): eager "
+                    f"{res['ms'][name]['eager']['median']:.2f} / graph "
+                    f"{res['ms'][name]['graph']['median']:.2f}; host ms to "
+                    f"queue a step: eager "
+                    f"{res['queue_ms'][name]['eager']:.3f} / graph "
+                    f"{res['queue_ms'][name]['graph']:.3f}; one step traced: "
+                    f"eager {trace_e['host_launches']} host launches, "
+                    f"{trace_e['kernels']} kernels, busy "
+                    f"{trace_e['busy_of_span'] or 0:.1%} of "
+                    f"{trace_e['span_ms']:.2f} ms; graph "
+                    f"{trace_g['host_launches']} host launches, "
+                    f"{trace_g['kernels']} kernels ({trace_g['in_range']} in "
+                    f"its train_step range), busy "
+                    f"{trace_g['busy_of_span'] or 0:.1%} of "
+                    f"{trace_g['span_ms']:.2f} ms; capture (warm step "
+                    f"included) {graph.capture_s:.2f} s, pool "
+                    f"{graph.pool_bytes / 2**20:.0f} MiB; {smi}")
+                if trace_g["in_range"] != trace_g["kernels"]:
+                    failed.append(f"{name}: replay kernels outside the range")
+                if mode == "cached":
+                    res["eval"] = res.get("eval", {})
+                    res["eval"][arch] = _eval_times(mg, data, res["pools"])
+                del me, oe, se, mg, og, sg, graph
+                torch.cuda.empty_cache()
+    res["launches"] = read_launches()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[steps] launches {res['launches']}; phase {res['seconds']:.1f} s")
+    print(json.dumps({"steps": res}), flush=True)
+    if failed:
+        raise AssertionError(f"steps: graphed differs from eager: {failed}")
+    return res
+
+
+def _eval_times(model, data: dict, pools: list) -> dict:
+    """loop.evaluate of 256 rows (phase 6's validation split's size) at
+    eval batch 1,024 (one padded batch), eager and graphed in turns, host
+    clock including its one wait, 5 calls a turn; the logits bit-equal."""
+    from tpu_breath_torch import graphs
+    from tpu_breath_torch.train import loop
+    from tpu_breath_torch.utils import path_times
+
+    n = 256
+    y = (np.arange(n) % 2).astype(np.float32)
+    predict = loop.Predictor(model, data["feats"][:n], data["scals"][:n],
+                             1024)
+    def logits():
+        out = predict()
+        torch.cuda.synchronize()
+        return out.clone()
+
+    with graphs.eager():
+        eager = logits()
+    graphed = logits()
+    same = bool(torch.equal(eager, graphed))
+    times = {False: [], True: []}
+    for g in (False, True, True, False):
+        with contextlib.nullcontext() if g else graphs.eager():
+            times[g] += path_times.host_ms(lambda: loop.evaluate(predict, y),
+                                           5, 1, "cuda")
+    graph = next(iter(predict.graphs.values()))
+    pools.append({"graph": f"eval {type(model).__name__} B=1024",
+                  "capture_s": graph.capture_s,
+                  "pool_bytes": graph.pool_bytes})
+    out = {"logits_bit_equal": same,
+           "eager_ms": float(np.median(times[False])),
+           "graph_ms": float(np.median(times[True]))}
+    log(f"[steps] (ii) evaluate {type(model).__name__}, {n} rows in one "
+        f"padded batch of 1,024 (host clock, one wait, in turns): eager "
+        f"{out['eager_ms']:.2f} ms, graph {out['graph_ms']:.2f} ms; logits "
+        f"bit-equal {same}; capture {graph.capture_s:.2f} s, pool "
+        f"{graph.pool_bytes / 2**20:.0f} MiB")
+    if not same:
+        raise AssertionError("the eval graph's logits differ from eager")
+    return out
+
 
 
 def phase_parity(smi: str) -> dict:
@@ -1651,53 +1893,61 @@ def phase_profile(tmp: str) -> None:
     if not kernels:
         raise AssertionError("the trace holds no device kernel")
 
-    n_steps = len(spans["train_step"])
-    if not n_steps or len(spans["fused_features"]) != n_steps:
-        raise AssertionError(f"the trace holds {n_steps} train_step and "
+    # train --fused cnn8, 2 epochs of 2 steps: the first step runs eagerly
+    # (its features in a fused_features range) and is captured, the other
+    # three are replays of the step's graph, whose kernels belong to the
+    # train_step range of their replay
+    # (the eager step's range has a span on each stream it used: the
+    # capture stream's warm step and the current stream's copies)
+    steps = sorted(spans["train_step"])
+    if len(steps) < 4 or len(spans["fused_features"]) != 1:
+        raise AssertionError(f"the trace holds {len(steps)} train_step and "
                              f"{len(spans['fused_features'])} fused_features "
-                             "spans on the device: the steps cannot be told "
-                             "apart")
+                             "spans on the device, not 3 replays after the "
+                             "first, eager step (one fused_features span)")
 
-    def inside(e, name):
-        return any(a <= e["ts"] < b for a, b in spans[name])
+    def inside(e, span):
+        return span[0] <= e["ts"] < span[1]
 
+    log(f"[profile] kernels a train_step span: "
+        f"{[sum(inside(e, t) for e in kernels) for t in steps]}")
     # a kernel falls in the device span of its innermost range only: the
-    # features' in fused_features, the model's in train_step
-    kernels = [e for e in kernels if inside(e, "train_step")
-               or inside(e, "fused_features")]
-    feat = [e for e in kernels if inside(e, "fused_features")]
-    total = sum(e["dur"] for e in kernels)
-    # busy share, all from this trace: the device time of the steps' kernels
-    # over the steps' lengths on the device, each from its features' first
-    # kernel to its model's last
-    steps = list(zip(sorted(spans["fused_features"]),
-                     sorted(spans["train_step"])))
-    if any(not (f[0] <= t[0] and f[1] <= t[1]) for f, t in steps):
-        raise AssertionError(f"features and step spans interleave: {steps}")
-    span_us = sum(t[1] - f[0] for f, t in steps)
-    log(f"[profile] device kernels of the {n_steps} fused steps: "
-        f"{total / 1e3:.2f} ms in {len(kernels)} launches "
-        f"({total / 1e3 / n_steps:.2f} ms and {len(kernels) / n_steps:.0f} "
-        f"launches a step); features "
-        f"{sum(e['dur'] for e in feat) / 1e3 / n_steps:.2f} ms in "
-        f"{len(feat) / n_steps:.0f} launches a step; a step spans "
-        f"{span_us / 1e3 / n_steps:.2f} ms on the device, busy "
-        f"{total / span_us:.1%}")
-    for part, ks in (("step", kernels), ("features", feat)):
-        by_name: dict = {}
-        for e in ks:
-            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
-        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-            log(f"[profile]   {part:8s} {us / max(total, 1e-9):6.1%} of the "
-                f"step {us / 1e3 / n_steps:8.3f} ms/step  {name[:100]}")
+    # eager step's features' in fused_features, the rest in train_step
+    feat = [e for e in kernels if inside(e, spans["fused_features"][0])]
+    eager = [e for e in kernels if inside(e, spans["fused_features"][0])
+             or any(inside(e, t) for t in steps[:-3])]
+    replays = [[e for e in kernels if inside(e, t)] for t in steps[-3:]]
+    counts = [len(ks) for ks in replays]
+    if len(set(counts)) != 1 or counts[0] < len(eager) // 2:
+        raise AssertionError(f"kernels in the replayed steps' ranges "
+                             f"{counts}, in the eager step {len(eager)}")
+    total = sum(e["dur"] for ks in replays for e in ks)
+    span_us = sum(max(e["ts"] + e["dur"] for e in ks)
+                  - min(e["ts"] for e in ks) for ks in replays)
+    n = len(replays)
+    log(f"[profile] the {n} replayed fused steps: {total / 1e3 / n:.2f} ms "
+        f"of device time and {counts[0]} kernels a step, a step spans "
+        f"{span_us / 1e3 / n:.2f} ms on the device, busy "
+        f"{total / span_us:.1%}; the eager first step: {len(eager)} "
+        f"kernels, {len(feat)} of them its features' "
+        f"({sum(e['dur'] for e in feat) / 1e3:.2f} ms)")
+    flat = [e for ks in replays for e in ks]
+    by_name: dict = {}
+    for e in flat:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[profile]   step {us / max(total, 1e-9):6.1%} of the step "
+            f"{us / 1e3 / n:8.3f} ms/step  {name[:100]}")
     # the path's kernels of this port, by the name of their __global__
     for k, fn in (("A", "tuning_tail_kernel"), ("B''", "gammatone_kernel"),
                   ("C", "suppress_kernel")):
-        mine = [e for e in feat if fn in e["name"]]
+        mine = [e for e in flat if fn in e["name"]]
         us = sum(e["dur"] for e in mine)
         log(f"[profile]   kernel {k}: {us / max(total, 1e-9):.2%} of the "
-            f"step, {us / 1e3 / n_steps:.3f} ms/step in "
-            f"{len(mine) / n_steps:.0f} launches/step")
+            f"step, {us / 1e3 / n:.3f} ms/step in "
+            f"{len(mine) / n:.0f} launches/step")
+        if not mine:
+            raise AssertionError(f"kernel {k} is not in the replayed steps")
 
 
 def phase_bench(smi: str) -> dict:
@@ -1915,12 +2165,9 @@ def phase_tools(tmp: str, smi: str) -> dict:
     return {"launches": launches, "seconds": seconds}
 
 
-def phase_times(serve: dict, e2e: dict, fused: dict) -> None:
-    from tpu_breath_torch import augment, ensemble
-    from tpu_breath_torch.config import CNN8_TRAIN, DEFAULT_FEATURES, VGG_TRAIN
+def phase_times(serve: dict, e2e: dict, fused: dict, steps: dict) -> None:
+    from tpu_breath_torch import ensemble
     from tpu_breath_torch.features import extract_features
-    from tpu_breath_torch.models import registry
-    from tpu_breath_torch.train import loop
     from tpu_breath_torch.utils import path_times
 
     for b in (MICRO, CHUNK):
@@ -1946,46 +2193,19 @@ def phase_times(serve: dict, e2e: dict, fused: dict) -> None:
         f"CNN8 built once (utils/path_times.py, host clock, 40 calls): "
         f"median {np.median(ms):.2f} ms, p90 {np.percentile(ms, 90):.2f} ms")
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    for arch, cfg in (("cnn8", CNN8_TRAIN), ("vgg", VGG_TRAIN)):
-        b = cfg.batch_size
-        model = registry.build(arch, 36).cuda()
-        opt = loop.make_optimizer(model, cfg)
-        batch = augment.Batch(
-            torch.randn(b, 9, 128, 63, generator=gen, device="cuda"),
-            torch.randn(b, 36, generator=gen, device="cuda"),
-            (torch.rand(b, generator=gen, device="cuda") < 0.5).float())
-        draws = augment.draw(gen, b, 128, 63, cfg.cutmix_alpha,
-                             cfg.mixup_alpha, "cuda")
-        plain_ms = cuda_ms(lambda: loop.train_step(model, opt, 1e-4, batch,
-                                                   cfg), iters=10)
-        aug_ms = cuda_ms(lambda: loop.train_step(model, opt, 1e-4, batch,
-                                                 cfg, draws), iters=10)
+    # the train steps: the step programs as fit runs them (phase_steps'
+    # CUDA-event times at batch 512, graphed, augmentation on), beside the
+    # epochs of the CLI runs
+    for arch in STEP_KEYS:
+        ms = {m: steps["ms"][f"{arch} {m}"]["graph"]["median"]
+              for m in ("cached", "fused")}
         secs = [r["sec"] for r in e2e[arch][1:]]
-        log(f"[time] {arch} train step, batch {b} (CUDA events, mean of "
-            f"10): {plain_ms:.2f} ms without augmentation, {aug_ms:.2f} ms "
-            f"with; e2e epoch wall time (2 steps + val of 256) median "
-            f"{np.median(secs):.3f} s over epochs 2-6")
-        # the fused step on b train clips, as train --fused runs it (B'')
-        w = fused["wavs"][:b]
-        with gt_switch():
-            feat_ms = cuda_ms(lambda: loop.fused_features(w, DEFAULT_FEATURES),
-                              iters=3, warmup=1)
-            fb = augment.Batch(*loop.fused_features(w, DEFAULT_FEATURES),
-                               batch.labels)
-            model_ms = cuda_ms(lambda: loop.train_step(model, opt, 1e-4, fb,
-                                                       cfg, draws), iters=10)
-            step_ms = cuda_ms(lambda: loop.train_step(
-                model, opt, 1e-4, augment.Batch(
-                    *loop.fused_features(w, DEFAULT_FEATURES), fb.labels),
-                cfg, draws), iters=3, warmup=1)
         fsecs = [r["sec"] for r in fused[arch][1:]]
-        log(f"[time] {arch} fused train step, batch {b} (CUDA events): "
-            f"{step_ms:.2f} ms (mean of 3) = features {feat_ms:.2f} ms "
-            f"(4 chunks of 128, mean of 3) + model {model_ms:.2f} ms (with "
-            f"augmentation, mean of 10); fused epoch wall time (2 steps + "
-            f"val of 256) median {np.median(fsecs):.3f} s over epochs 2-6")
-        del model, opt, batch, fb
+        log(f"[time] {arch} train step, batch {STEP_BATCH}, one replay "
+            f"(CUDA events, phase steps): cached {ms['cached']:.2f} ms, "
+            f"fused {ms['fused']:.2f} ms (kernel B); epoch wall time (2 "
+            f"steps + val of 256) median {np.median(secs):.3f} s cached, "
+            f"{np.median(fsecs):.3f} s fused (B''), epochs 2-6")
     log(f"[time] precompute, 1,536 clips (TPU_BREATH_PALLAS_GT=1): "
         f"{e2e['precompute_line']}; whole command {e2e['precompute_s']:.2f} "
         f"s with decode; train cnn8,vgg 6 epochs + predict "
@@ -2015,6 +2235,7 @@ def main(argv: list[str] | None = None) -> int:
     ker = phase_kernels()
     phase_features()
     phase_graphs(env["smi"])
+    steps = phase_steps(env["smi"])
     parity = phase_parity(env["smi"])
     with tempfile.TemporaryDirectory() as tmp:
         serve = phase_serve(tmp)
@@ -2026,7 +2247,7 @@ def main(argv: list[str] | None = None) -> int:
         phase_profile(tmp)
         bench = phase_bench(env["smi"])
         tools = phase_tools(tmp, env["smi"])
-        phase_times(serve, e2e, fused)
+        phase_times(serve, e2e, fused, steps)
     src = "tpu_breath_torch/csrc"
     pallas = "tpu_breath/ops/pallas"
     table = [
@@ -2043,8 +2264,9 @@ def main(argv: list[str] | None = None) -> int:
     # launches: each path counted from 0 just before it runs; times at the
     # precompute chunk (B = 128). No single PyTorch call computes A-C;
     # D's library time is conv1d's (its complex response, no |.|)
-    paths = {"serve": serve["launches"], "e2e": e2e["launches"],
-             "repro": repro["launches"], "fused": fused["launches"], "mesh": mesh["launches"],
+    paths = {"steps": steps["launches"], "serve": serve["launches"],
+             "e2e": e2e["launches"], "repro": repro["launches"],
+             "fused": fused["launches"], "mesh": mesh["launches"],
              "parity": parity["launches"], "bench": bench["launches"],
              "tools": tools["launches"]}
     kernels = [{"name": name, "route": "cuda", "source": f"{src}/{f}",

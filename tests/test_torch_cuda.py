@@ -1024,3 +1024,122 @@ def test_replay_loop_waits_on_the_host_once(clips, path, monkeypatch):
     assert len(waits) == 1
     for a, b in zip(first, again):
         assert np.array_equal(a, b, equal_nan=True)
+
+
+def _fit_data(clips):
+    """16 clips (the golden wavs and seeded noise), their features by
+    precompute's path at chunks of 8, alternating labels."""
+    from tpu_breath_torch.features import extract_features_batched
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    w = torch.cat([clips[:2], 0.05 * torch.randn(14, 16000, generator=g,
+                                                  device="cuda")])
+    wavs = w.cpu().numpy()
+    f, s = extract_features_batched(wavs, chunk=8, device="cuda")
+    return wavs, f, s, (np.arange(16) % 2).astype(np.float32)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_graphed_fit_equals_eager_fit(clips, fused, monkeypatch):
+    """fit on the card, 2 epochs of 2 steps (16 clips, batch 8, dropout
+    on, augmentation on in the second epoch; 10 validation rows in batches
+    of 8, the tail padded), cached or fused (TPU_BREATH_PALLAS_GT=1): as
+    graphs (one of the step, one of the evaluation) and inside
+    graphs.eager() (none), from one seed: the histories and the final
+    weights are equal bit for bit."""
+    from tpu_breath_torch import graphs
+    from tpu_breath_torch.config import DEFAULT_FEATURES as SPEC
+    from tpu_breath_torch.config import TrainCfg
+    from tpu_breath_torch.models import registry
+    from tpu_breath_torch.train import loop
+
+    monkeypatch.setenv("TPU_BREATH_PALLAS_GT", "1")
+    wavs, f, s, y = _fit_data(clips)
+    made = []
+
+    class Counting(graphs.Graph):
+        def __init__(self, *a, **k):
+            made.append(a[0])
+            super().__init__(*a, **k)
+
+    monkeypatch.setattr(graphs, "Graph", Counting)
+    cfg = TrainCfg(num_epochs=2, batch_size=8, eval_batch_size=8,
+                   warmup_epochs=1, patience=9)
+    store, spec = ((wavs, None), SPEC) if fused else ((f, s), None)
+
+    def run():
+        return loop.fit(registry.build("cnn8", 36, seed=3), store,
+                        (f[:10], s[:10]), y, y[:10], cfg,
+                        log_fn=lambda *_: None, fused_spec=spec)
+
+    with graphs.eager():
+        eager = run()
+    assert made == []
+    graphed = run()
+    assert len(made) == 2
+    for re, rg in zip(eager.history, graphed.history):
+        assert {k: v for k, v in re.items() if k != "sec"} == {
+            k: v for k, v in rg.items() if k != "sec"}
+    se, sg = eager.model.state_dict(), graphed.model.state_dict()
+    assert all(torch.equal(se[k], sg[k]) for k in se)
+
+
+def test_eval_graph_equals_eager(clips):
+    """A Predictor of VGG (10 rows in batches of 4, the tail padded) gives
+    eager logits bit for bit from one graph replayed every call."""
+    from tpu_breath_torch import graphs
+    from tpu_breath_torch.models import registry
+    from tpu_breath_torch.train import loop
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    f = torch.randn(10, 9, 128, 63, generator=g, device="cuda")
+    s = torch.randn(10, 36, generator=g, device="cuda")
+    predict = loop.Predictor(registry.build("vgg", 36, seed=2).cuda(), f, s,
+                             4)
+
+    def logits():
+        out = predict()
+        graphs.wait("cuda")
+        return out.clone()
+
+    with graphs.eager():
+        ref = logits()
+    got = [logits() for _ in range(2)]
+    assert len(predict.graphs) == 1
+    assert all(torch.equal(x, ref) for x in got)
+    assert torch.isfinite(ref).all()
+
+
+def test_graphed_epoch_waits_on_the_host_once(clips, monkeypatch):
+    """A graphed fit's epochs after the first (3 epochs of 2 steps,
+    cached, a padded evaluation) queue their uploads, step replays, means
+    and evaluation replays without a host synchronisation (torch's sync
+    debug mode raises on one, from the end of the first epoch) until the
+    epoch's one wait (graphs.wait, where the check ends)."""
+    from tpu_breath_torch import graphs
+    from tpu_breath_torch.config import TrainCfg
+    from tpu_breath_torch.models import registry
+    from tpu_breath_torch.train import loop
+
+    _, f, s, y = _fit_data(clips)
+    waits, lines = [], []
+    wait = graphs.wait
+
+    def final_wait(device):
+        torch.cuda.set_sync_debug_mode("default")
+        waits.append(len(lines))
+        wait(device)
+
+    def log_fn(msg):  # an epoch ends: check the next one
+        lines.append(msg)
+        torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(graphs, "wait", final_wait)
+    cfg = TrainCfg(num_epochs=3, batch_size=8, eval_batch_size=8,
+                   warmup_epochs=1, patience=9)
+    try:
+        loop.fit(registry.build("cnn8", 36, seed=3), (f, s), (f[:10], s[:10]),
+                 y, y[:10], cfg, log_fn=log_fn)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert waits == [0, 1, 2] and len(lines) == 3

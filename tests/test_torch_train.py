@@ -193,10 +193,11 @@ def test_clip_is_optax_rule():
 
 def test_optimizer_chain_matches_optax_over_five_steps():
     """clip 1.0 -> AdamW(0.9, 0.999, 1e-8, wd 1e-4) at warmup_cosine rates,
-    fed the same five gradients (norms 0.3 to 30, so some are clipped):
-    parameters within 1e-6 of optax's after every step, relative to each
-    tensor's largest |value| (the bias corrections run in float64 in torch
-    and in f32 in optax: measured 2.7e-9 absolute on parameters of ~1)."""
+    each handed to the step as a 0-d f32 tensor, fed the same five
+    gradients (norms 0.3 to 30, so some are clipped): parameters within
+    1e-6 of optax's after every step, relative to each tensor's largest
+    |value| (f32 on both sides; XLA may fuse the moments' products
+    otherwise), and the step count on the parameters' device."""
     rng = np.random.default_rng(7)
     shapes = [(4, 3), (7,), (2, 2, 3)]
     p0 = [rng.standard_normal(sh).astype(np.float32) for sh in shapes]
@@ -222,13 +223,12 @@ def test_optimizer_chain_matches_optax_over_five_steps():
         for p, g in zip(holder.ps, gs):
             p.grad = torch.from_numpy(g.copy())
         loop.clip_by_global_norm_([p.grad for p in holder.ps], 1.0)
-        for group in opt.param_groups:
-            group["lr"] = schedule(step)
-        opt.step()
+        opt.step(torch.tensor(schedule(step), dtype=torch.float32))
         for a, b in zip(holder.ps, params):
             b = np.asarray(b)
             err = np.abs(a.detach().numpy() - b).max()
             assert err <= 1e-6 * np.abs(b).max(), (step, err)
+        assert all(int(opt.state[p]["step"]) == step + 1 for p in holder.ps)
 
 
 # ------------------------------------------------------------ one train step
@@ -242,8 +242,11 @@ def _flax_model(arch):
 
 @pytest.mark.parametrize("arch", ["cnn8", "vgg"])
 def test_one_train_step_matches_flax(arch):
-    """Converted weights, f32, dropout 0, no augmentation, training mode on
-    8 clips of 9x32x16: the loss within 1e-5 relative (measured 1.2e-6);
+    """Converted weights, f32, dropout 0, augmentation drawn and gated off,
+    training mode on 8 clips of 9x32x16, through fit's step program
+    (loop.TrainStep at rate 0, the clip's bound infinite, so the gradients
+    stay as the backward left them): the loss within 1e-5 relative
+    (measured 1.2e-6);
     every gradient within 2e-4 of its tensor's largest |gradient| (sums over
     the batch and the image run in other orders), or within 1e-6 where it is
     zero up to rounding (a bias ahead of a batch norm, e.g. VGG's
@@ -275,11 +278,11 @@ def test_one_train_step_matches_flax(arch):
 
     model = registry.build(arch, 36, dropout_rate=0.0)
     model.load_state_dict(FROM_FLAX[arch](params, stats))
-    model.train()
-    loss_t = loop.bce_with_logits(model(torch.from_numpy(f),
-                                        torch.from_numpy(s)),
-                                  torch.from_numpy(y))
-    loss_t.backward()
+    cfg = TrainCfg(batch_size=8, grad_clip_norm=float("inf"))
+    step = loop.TrainStep(model, loop.make_optimizer(model, cfg),
+                          tuple(map(torch.from_numpy, (f, s, y))), cfg,
+                          torch.Generator().manual_seed(0))
+    loss_t, _ = step(torch.arange(8), torch.tensor(0.0), torch.tensor(False))
     assert abs(loss_t.item() - float(loss_j)) <= 1e-5 * abs(float(loss_j))
     for name, p in model.named_parameters():
         want = ref[name].numpy()

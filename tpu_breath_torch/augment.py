@@ -11,13 +11,17 @@ The semantics are the JAX package's:
 - per step r ~ U[0, 1) picks CutMix (r < cutmix_prob), MixUp
   (r < cutmix_prob + mixup_prob) or nothing; use_aug gates it all.
 The branch is selected on the device (torch.where), so a step never waits
-for the host. Under a data-parallel mesh the draws are of the global batch
-(every rank draws them from the same seeded generator), each rank mixes its
-own rows with partner rows taken from the global batch (local_rows,
+for the host. As in the JAX package a step draws whether or not use_aug is
+on, and gate() applies the flag on the device, so one program (one CUDA
+graph of the step) serves the epochs before the warmup's end and after.
+Under a data-parallel mesh the draws are of the global batch (every rank
+draws them from the same seeded generator), each rank mixes its own rows
+with partner rows taken from the global batch (local_rows,
 apply_augmentation's `partners`).
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -77,6 +81,16 @@ def draw(g: torch.Generator, b: int, h: int, w: int, cutmix_alpha: float,
     return AugDraw(r, cut, mix)
 
 
+def gate(d: AugDraw, use_aug) -> AugDraw:
+    """d with the use_aug gate (a bool, or a bool scalar on d's device)
+    applied: gated off, r becomes +inf, which picks neither CutMix nor
+    MixUp, so apply_augmentation returns the batch as it was (the JAX
+    package's passthrough branch, tpu_breath/augment.py:65-74)."""
+    if not torch.is_tensor(use_aug):
+        return d if use_aug else d._replace(r=torch.full_like(d.r, math.inf))
+    return d._replace(r=torch.where(use_aug, d.r, math.inf))
+
+
 def local_rows(d: AugDraw, rows: slice) -> AugDraw:
     """The draws of a global batch for its rows `rows`: the partner of
     local row i is global row perm[rows][i]."""
@@ -125,8 +139,7 @@ def apply_augmentation(batch: Batch, d: AugDraw, cutmix_prob: float,
                        ) -> Batch:
     """CutMix if r < cutmix_prob, else MixUp if r < cutmix_prob +
     mixup_prob, else the batch unchanged; the perms index partners (by
-    default batch itself). (The use_aug gate is the caller's: a gated-off
-    step does not draw or call this.)"""
+    default batch itself). The use_aug gate is in r (gate)."""
     cut = cutmix(batch, d.cutmix, partners)
     mix = mixup(batch, d.mixup, partners)
     is_cut = d.r < cutmix_prob

@@ -22,10 +22,12 @@ Parts, in order:
    one synchronize. The gammatone route follows TPU_BREATH_PALLAS_GT, as
    in every feature call.
 3. Fused CNN8 step (bench.py:98-137), the headline `value`: --steps steps
-   at batch --batch, augmentation on, each fit's own step on the gathered
-   wavs (train/loop.fit_step: fused_features in chunks of 128, augment.draw,
-   train_step at the warmup-cosine rate), then one synchronize; the loss is
-   read once at the end and must be finite.
+   at batch --batch, augmentation on, each fit's own step program on the
+   gathered wavs (train/loop.TrainStep: fused_features in chunks of 128,
+   augment.draw, train_step at the warmup-cosine rate; on the card one
+   replay of the step's CUDA graph, captured in the first run's first
+   step), then one synchronize; the loss is read once at the end and must
+   be finite.
 4. Fused VGG step (bench.py:139-171): the same with VGG_TRAIN.
 5. Serve latency (tools/latency_probe.py): CNN8 and VGG built once, blended
    by softmax([0.79, 0.80]); a request is a wav array on the host ->
@@ -37,10 +39,12 @@ Parts, in order:
    chained iterations inside one jit to hide its relay's sync; here a
    request is timed as its user sees it.
 6. Step split (tools/mfu_split.py), each model at batch --batch:
-   `features` (fused_features), `fwd` (forward in train mode), `grad`
-   (forward + BCE + backward), `cached` (fit_step on precomputed features),
-   `fused` (fit_step on the wavs); each the mean of --steps launches after
-   a warm-up, by CUDA events, the median of 3 rounds (of --repeats when
+   `features` (the batch's features at the fused step's chunk geometry, on
+   the card replays of precompute's chunk graph), `fwd` (forward in train
+   mode) and `grad` (forward + BCE + backward), both eager, `cached` (the
+   step program, TrainStep, on precomputed features), `fused` (the step
+   program on the wavs); each the mean of --steps launches after a warm-up
+   (the capture), by CUDA events, the median of 3 rounds (of --repeats when
    fewer); the attribution
    (fused - cached, grad - fwd, cached - grad) and the cached step at half,
    one and two times the batch; the model's peak device memory.
@@ -89,6 +93,7 @@ import numpy as np
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
+from tpu_breath_torch import graphs
 from tpu_breath_torch.baseline import feature_np
 from tpu_breath_torch.config import (CNN8_TRAIN, DEFAULT_FEATURES, VGG_TRAIN,
                                      Paths)
@@ -244,18 +249,38 @@ def piece(ms_runs: list[float], b: int, flops: float) -> dict:
             "gflop": flops / 1e9, "mfu": flops / (ms / 1e3) / PEAK_FLOPS}
 
 
+def step_piece(model, opt, cfg, data: tuple, lr: float,
+               gen: torch.Generator, fused_spec=None):
+    """fit's step program (loop.TrainStep) on every row of data (the batch,
+    cached or fused as fit's data) at rate lr, augmentation on, as a
+    call."""
+    dev = data[-1].device
+    n = data[-1].shape[0]
+    step = loop.TrainStep(model, opt, data,
+                          dataclasses.replace(cfg, batch_size=n), gen,
+                          fused_spec)
+    rows = torch.arange(n, device=dev)
+    rate = torch.full((), lr, device=dev)
+    on = torch.ones((), dtype=torch.bool, device=dev)
+    return lambda: step(rows, rate, on)
+
+
 def split_pieces(model, opt, cfg, spec, w: torch.Tensor, y: torch.Tensor,
                  lr: float, gen: torch.Generator) -> dict:
     """The step split's pieces on one batch of wavs w and labels y, each a
-    call: `features` (fused_features), `fwd` (forward, no grad), `grad`
-    (forward + BCE + backward), `cached` (fit_step on w's precomputed
-    features; its arguments may name another batch and config) and `fused`
-    (fit_step on w)."""
+    call: `features` (w's features at the fused step's chunk geometry, by
+    extract_features_compiled: replays of precompute's graph on the card),
+    `fwd` (forward, no grad), `grad` (forward + BCE + backward), `cached`
+    (the step program on w's precomputed features) and `fused` (the step
+    program on w)."""
     f, sc = loop.fused_features(w, spec)
     params = list(model.parameters())
+    b = w.shape[0]
+    chunk = CHUNK if b > CHUNK and b % CHUNK == 0 else b
 
     def features():
-        loop.fused_features(w, spec)
+        for lo in range(0, b, chunk):
+            extract_features_compiled(w[lo:lo + chunk], spec)
 
     @torch.no_grad()
     def fwd():
@@ -264,14 +289,9 @@ def split_pieces(model, opt, cfg, spec, w: torch.Tensor, y: torch.Tensor,
     def grad():
         torch.autograd.grad(loop.bce_with_logits(model(f, sc), y), params)
 
-    def cached(c=cfg, ff=f, ss=sc, yy=y):
-        loop.fit_step(model, opt, lr, (ff, ss, yy), None, c, gen, True)
-
-    def fused():
-        loop.fit_step(model, opt, lr, (w, y), None, cfg, gen, True, spec)
-
     return {"features": features, "fwd": fwd, "grad": grad,
-            "cached": cached, "fused": fused}
+            "cached": step_piece(model, opt, cfg, (f, sc, y), lr, gen),
+            "fused": step_piece(model, opt, cfg, (w, y), lr, gen, spec)}
 
 
 def fused_and_split(arch: str, cfg, x: torch.Tensor, labels: torch.Tensor,
@@ -290,20 +310,25 @@ def fused_and_split(arch: str, cfg, x: torch.Tensor, labels: torch.Tensor,
                              cfg.warmup_frac, cfg.lr_start_factor,
                              cfg.lr_eta_min)
     gen = torch.Generator(device=device).manual_seed(1)
-    # bench.py:118-121's batches, on the device before any timing
+    # bench.py:118-121's batches, and every run's rates, on the device
+    # before any timing
     idx = torch.from_numpy(np.stack(
         [np.arange(b) + (s * b) % (n - b) for s in range(a.steps)])).to(device)
+    lrs = torch.tensor([schedule(s) for s in range((a.repeats + 1)
+                                                   * a.steps)],
+                       dtype=torch.float32, device=device)
+    on = torch.ones((), dtype=torch.bool, device=device)
+    run = loop.TrainStep(model, opt, (x, labels), cfg, gen, spec)
     step, loss = 0, None
 
     def steps():
         nonlocal step, loss
         for s in range(a.steps):
-            loss, _ = loop.fit_step(model, opt, schedule(step),
-                                    (x, labels), idx[s], cfg, gen, True,
-                                    spec)
+            loss, _ = run(idx[s], lrs[step], on)
             step += 1
     ms = path_times.host_ms(steps, a.repeats, 1, device)
     loss = float(loss)  # the runs ended in a synchronize
+    del steps, run  # and the step's graph
     if not math.isfinite(loss):
         raise RuntimeError(f"{arch} fused step: loss {loss}")
     rates = [a.steps * b / (t / 1e3) for t in ms]
@@ -311,13 +336,14 @@ def fused_and_split(arch: str, cfg, x: torch.Tensor, labels: torch.Tensor,
         f"steps; loss {loss:.4f}")
 
     # the step split on the first batch
-    pieces = split_pieces(model, opt, cfg, spec, x[:b], labels[:b],
-                          schedule(step), gen)
+    lr = schedule(step)
+    pieces = split_pieces(model, opt, cfg, spec, x[:b], labels[:b], lr, gen)
     rounds = min(a.repeats, SPLIT_ROUNDS)
     model.train()
-    flops = {"features": feat_flops_clip * b,
-             **{k: counted_flops(pieces[k])
-                for k in ("fwd", "grad", "cached")}}
+    with graphs.eager():  # a replay runs no operation a counter sees
+        flops = {"features": feat_flops_clip * b,
+                 **{k: counted_flops(pieces[k])
+                    for k in ("fwd", "grad", "cached")}}
     flops["fused"] = flops["features"] + flops["cached"]
     split = {name: piece(event_ms(fn, a.steps, rounds, device), b,
                          flops[name]) for name, fn in pieces.items()}
@@ -328,15 +354,15 @@ def fused_and_split(arch: str, cfg, x: torch.Tensor, labels: torch.Tensor,
         "bwd(grad-fwd)": ms_of["grad"] - ms_of["fwd"],
         "aug+clip+adamw(cached-grad)": ms_of["cached"] - ms_of["grad"]}
     batch = (*loop.fused_features(x[:b], spec), labels[:b])
+    del pieces  # and their graphs
     sweep = {str(b): {"ms": ms_of["cached"],
                       "clips_per_s": split["cached"]["clips_per_s"]}}
     for bb in (b // 2, 2 * b):
         reps = -(-bb // b)
-        fb, sb, yb = (t.repeat(reps, *[1] * (t.dim() - 1))[:bb]
-                      for t in batch)
-        cfg_b = dataclasses.replace(cfg, batch_size=bb)
-        runs = event_ms(lambda: pieces["cached"](cfg_b, fb, sb, yb),
-                        a.steps, rounds, device)
+        data = tuple(t.repeat(reps, *[1] * (t.dim() - 1))[:bb]
+                     for t in batch)
+        runs = event_ms(step_piece(model, opt, cfg, data, lr, gen), a.steps,
+                        rounds, device)
         ms_b = float(np.median(runs))
         sweep[str(bb)] = {"ms": ms_b, "clips_per_s": bb / ms_b * 1e3}
     split["cached_batch_sweep"] = dict(sorted(sweep.items(),

@@ -40,8 +40,11 @@ def load_models(ckpt_paths, archs, num_scalar_features: int,
 def predict_probs(model: torch.nn.Module, feats: np.ndarray,
                   scals: np.ndarray, batch_size: int = 1024,
                   device="cuda") -> np.ndarray:
-    """Sigmoid probabilities [N] (float32) of one model over the whole set;
-    the set goes to the device once."""
+    """Sigmoid probabilities [N] (float32) of one model over the whole set
+    (tpu_breath/ensemble.py::predict_probs): the set goes to the device
+    once, then batches of batch_size rows, the tail padded with its last
+    row, through loop.Predictor (on the card one replay a batch, one wait
+    at the end)."""
     device = resolve_device(device)
     model.to(device)
     f = torch.from_numpy(np.ascontiguousarray(feats, np.float32)).to(device)
@@ -95,7 +98,8 @@ class Server:
     the global TF32/cuDNN flags), captured at its first use and kept while
     the server lives. The micro-batches are queued (wavs up from pinned
     memory, probabilities down into a pinned buffer) and the host waits
-    once, at the end. On the CPU the same program runs eagerly.
+    once, at the end. On the CPU (or inside graphs.eager()) the same
+    program runs eagerly.
     fused_gt follows TPU_BREATH_PALLAS_GT, read once a call."""
 
     def __init__(self, models, weights, spec=None, device="cuda"):
@@ -119,6 +123,7 @@ class Server:
         n = wavs.shape[0]
         n_pad = -(-n // micro_batch) * micro_batch
         cuda = self.device.type == "cuda"
+        graphed = graphs.replays(self.device)
         y = torch.zeros((n_pad, wavs.shape[1]), dtype=torch.float32,
                         pin_memory=cuda)
         y[:n] = torch.from_numpy(np.asarray(wavs, np.float32))
@@ -127,13 +132,14 @@ class Server:
         key = (micro_batch, fused_gt, graphs.global_flags())
         for lo in range(0, n_pad, micro_batch):
             x = y[lo:lo + micro_batch]
-            if not cuda:
-                out[lo:lo + micro_batch] = self.program(x, fused_gt)
+            if not graphed:
+                out[lo:lo + micro_batch].copy_(
+                    self.program(x.to(self.device), fused_gt))
                 continue
             graph = self.graphs.get(key)
             if graph is None:
                 graph = self.graphs[key] = graphs.Graph(
-                    lambda t: self.program(t, fused_gt), x, self.device)
+                    lambda t: self.program(t, fused_gt), (x,), self.device)
             out[lo:lo + micro_batch].copy_(graph(x), non_blocking=True)
         if cuda:
             graphs.wait(self.device)

@@ -99,18 +99,19 @@ def extract_features_compiled(y: torch.Tensor,
     copies y into the graph's input buffer and replays it without waiting
     on the host. It returns the graph's static output buffers, which the
     next call of the same key overwrites: copy what you keep first.
-    Elsewhere (a CPU tensor) it is extract_features and returns new
-    tensors. fused_gt None reads TPU_BREATH_PALLAS_GT now, as the JAX
-    package passes it as a static argument."""
+    Elsewhere (a CPU tensor, or inside graphs.eager()) it is
+    extract_features and returns new tensors. fused_gt None reads
+    TPU_BREATH_PALLAS_GT now, as the JAX package passes it as a static
+    argument."""
     if fused_gt is None:
         fused_gt = gt_switch()
-    if y.device.type != "cuda":
+    if not graphs.replays(y.device):
         return extract_features(y, spec, fused_gt)
     key = (y.device, tuple(y.shape), spec, fused_gt)
     graph = _GRAPHS.get(key)
     if graph is None:
         graph = _GRAPHS[key] = graphs.Graph(
-            lambda x: extract_features(x, spec, fused_gt), y.float(),
+            lambda x: extract_features(x, spec, fused_gt), (y.float(),),
             y.device)
     return graph(y)
 

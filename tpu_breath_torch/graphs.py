@@ -16,9 +16,12 @@ the capture's own counts back out (capturing launches nothing), and adds
 the recorded counts on every replay.
 
 There is no fallback: on the card a capture or a replay that fails raises.
+The only way to run a program's eager body on the card is eager(), the
+comparison side for the tests, chip_smoke and the bench.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 
@@ -59,10 +62,42 @@ def global_flags() -> tuple:
             torch.backends.cudnn.benchmark)
 
 
+_EAGER = False  # True inside eager() only
+
+
+@contextlib.contextmanager
+def eager():
+    """Inside the block every program that replays a graph on the card (the
+    feature chunk, a Server's micro-batch, fit's step, an evaluation batch)
+    runs its body eagerly instead: the eager side of a comparison. No CLI
+    flag reaches it."""
+    global _EAGER
+    saved, _EAGER = _EAGER, True
+    try:
+        yield
+    finally:
+        _EAGER = saved
+
+
+def replays(device) -> bool:
+    """Whether a program on `device` runs as a graph: on the card, outside
+    eager()."""
+    return torch.device(device).type == "cuda" and not _EAGER
+
+
 def wait(device) -> None:
     """The host's one wait for a queue of replays: their outputs, copied
     to pinned host memory on the current stream, are then readable."""
     torch.cuda.current_stream(device).synchronize()
+
+
+def release(device) -> None:
+    """Return the memory of graphs no longer referenced to the card (the
+    caching allocator's empty_cache). A deleted graph's private pool stays
+    cached in this process until an allocation fails, out of reach of any
+    other process on the card (ranks started next, say)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
 
 
 @functools.lru_cache(maxsize=None)
@@ -71,37 +106,51 @@ def _capture_stream(device: torch.device) -> torch.cuda.Stream:
 
 
 class Graph:
-    """fn(x) (x one tensor, the output a tuple or one tensor) captured as a
-    CUDA graph on `device`, for inputs of example's shape.
+    """fn(*xs) (xs tensors, the output a tuple or one tensor) captured as a
+    CUDA graph on `device`, for inputs of examples' shapes.
 
-    A call copies x into the static input buffer (on the current stream,
-    without waiting on the host; x may be pinned host memory) and replays
-    the graph on the current stream. It returns the graph's static output
-    buffers: the next call overwrites them, so a caller copies what it
-    keeps before it calls again.
+    Construction copies examples into the static input buffers, runs fn
+    once eagerly on them on the capture stream (the warm call: it launches
+    for real, and builds what a capture refuses), then captures fn on them.
+    The warm call's output stays in warm_out until the first replay: a
+    program whose call changes state (a train step) returns it as its
+    first call's result, so the warm call is that call. `generators`: the
+    CUDA generators other than the device's default that fn draws from,
+    registered with the graph, so a replay draws the numbers the eager call
+    would and advances them as it would (a capture advances none).
+
+    A call copies xs into the static input buffers (on the current stream,
+    without waiting on the host; an x may be pinned host memory) and
+    replays the graph on the current stream. It returns the graph's static
+    output buffers: the next call overwrites them, so a caller copies what
+    it keeps before it calls again.
 
     capture_s: seconds of the warm call and the capture; pool_bytes: the
     graph's private memory pool (its peak: a pool's segments are not
     released while the graph lives); launches: kernel -> launches a replay.
     """
 
-    def __init__(self, fn, example: torch.Tensor, device):
+    def __init__(self, fn, examples: tuple, device, generators=()):
         device = torch.device(device)
         t0 = time.perf_counter()
         with torch.cuda.device(device):
-            self.static_in = torch.empty(example.shape, dtype=example.dtype,
-                                         device=device)
-            self.static_in.copy_(example)
+            self.static_in = tuple(
+                torch.empty(x.shape, dtype=x.dtype, device=device).copy_(x)
+                for x in examples)
             stream = _capture_stream(device)
             current = torch.cuda.current_stream(device)
             stream.wait_stream(current)
             with torch.cuda.stream(stream):
-                fn(self.static_in)  # the warm call: it launches for real
+                self.warm_out = fn(*self.static_in)
             current.wait_stream(stream)
+            for t in _tensors(self.warm_out):  # read on the current stream
+                t.record_stream(current)
             before = read_launches()
             self.graph = torch.cuda.CUDAGraph()
+            for g in generators:
+                self.graph.register_generator_state(g)
             with torch.cuda.graph(self.graph, stream=stream):
-                self.static_out = fn(self.static_in)
+                self.static_out = fn(*self.static_in)
             after = read_launches()
             self.launches = {k: after[k] - before[k] for k in after}
             add_launches({k: -n for k, n in self.launches.items()})
@@ -112,8 +161,14 @@ class Graph:
             seg["total_size"] for seg in torch.cuda.memory_snapshot()
             if tuple(seg["segment_pool_id"]) == pool)
 
-    def __call__(self, x: torch.Tensor):
-        self.static_in.copy_(x, non_blocking=True)
+    def __call__(self, *xs: torch.Tensor):
+        self.warm_out = None
+        for static, x in zip(self.static_in, xs):
+            static.copy_(x, non_blocking=True)
         self.graph.replay()
         add_launches(self.launches)
         return self.static_out
+
+
+def _tensors(out) -> tuple:
+    return (out,) if isinstance(out, torch.Tensor) else tuple(out)

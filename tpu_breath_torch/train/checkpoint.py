@@ -68,8 +68,11 @@ def restore(path: str, model: torch.nn.Module) -> torch.nn.Module:
 
 def restore_train_state(path: str, model: torch.nn.Module,
                         optimizer: torch.optim.Optimizer) -> tuple[int, int]:
-    """Load model, optimizer state and step; returns (step, epoch). The
-    optimizer's state follows its parameters' device."""
+    """Load model, optimizer state and step; returns (step, epoch). Both
+    loads copy into the live tensors (nn.Module.load_state_dict and
+    loop.AdamW.load_state_dict), so the optimizer's state, its step count
+    included, stays on its parameters' device, and a CUDA graph that reads
+    them reads the restored values."""
     restore(path, model)
     state = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
                        weights_only=True)

@@ -11,7 +11,12 @@ best checkpoints and faithful resume.
   generators seeded from (seed, e), so a resumed run replays the epochs
   after its checkpoint exactly as the uninterrupted run ran them.
 - A step never waits for the host: losses and accuracies stay on the device
-  until the end of the epoch.
+  until the end of the epoch, which reads them and the validation logits
+  with one wait.
+- On the card a step is one replay of a CUDA graph of the whole step
+  (TrainStep, the JAX package's jitted make_train_step) and an evaluation
+  batch one replay of a graph of the forward (Predictor, its
+  make_eval_step); on the CPU the same programs run eagerly.
 - fit runs inside reproducible(), cuDNN's deterministic algorithms: on the
   card, as in the JAX package, a run is a function of its seed (one seed,
   one history; a resumed run is the run it continues).
@@ -29,10 +34,12 @@ rows gathered from every rank, and gradients averaged over the ranks by one
 all-reduce of their concatenation before clipping. Train loss and accuracy
 are reduced over the ranks once an epoch; validation is replicated, rank
 0's metrics decide early stopping on every rank, and rank 0 writes the
-checkpoints.
+checkpoints. The mesh path's steps run eagerly: its collectives go through
+gloo when ranks share a card, and gloo's cannot be captured.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import time
@@ -42,11 +49,11 @@ import torch
 from torch import nn
 from torch.profiler import record_function
 
-from tpu_breath_torch import augment
+from tpu_breath_torch import augment, graphs
 from tpu_breath_torch.config import FeatureSpec, TrainCfg
 from tpu_breath_torch.data import loader
 from tpu_breath_torch.device import resolve_device
-from tpu_breath_torch.features import extract_features_compiled
+from tpu_breath_torch.features import extract_features
 from tpu_breath_torch.models import layers
 from tpu_breath_torch.parallel import mesh as mesh_lib
 from tpu_breath_torch.train import checkpoint as ckpt_lib
@@ -87,12 +94,80 @@ def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor
                       + torch.log1p(torch.exp(-torch.abs(z))))
 
 
-def make_optimizer(model: nn.Module, cfg: TrainCfg) -> torch.optim.AdamW:
+class AdamW(torch.optim.Optimizer):
+    """optax.adamw(lr, b1, b2, eps, weight_decay) as tensor operations, one
+    code path on the CPU and on the card, nothing read on the host, so a
+    CUDA graph can hold a step: the moments by torch._foreach_* ops, the
+    step count a device tensor (optax's count, advanced before use), the
+    bias corrections 1 - b**count in f32 from it, the decayed update
+    p -= lr * (m_hat / (sqrt(v_hat) + eps) + weight_decay * p) in optax's
+    order, and the rate a 0-d f32 tensor on the parameters' device (or a
+    float, written into such a tensor). Every parameter decays, as optax's
+    adamw without a mask.
+
+    The state exists from construction, in torch.optim.AdamW's layout:
+    each parameter's "exp_avg", "exp_avg_sq" and "step" (one f32 tensor
+    that every parameter shares). load_state_dict copies into these
+    tensors, so a graph captured before a restore reads the restored
+    values."""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999),
+                 eps: float = 1e-8, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
+                                      weight_decay=weight_decay))
+        ps = [p for g in self.param_groups for p in g["params"]]
+        device = ps[0].device
+        self.count = torch.zeros((), dtype=torch.float32, device=device)
+        self.rate = torch.full((), lr, dtype=torch.float32, device=device)
+        for p in ps:
+            self.state[p] = {"step": self.count,
+                             "exp_avg": torch.zeros_like(p),
+                             "exp_avg_sq": torch.zeros_like(p)}
+
+    @torch.no_grad()
+    def step(self, lr) -> None:
+        """One update of every parameter that has a gradient, at rate lr."""
+        if not torch.is_tensor(lr):
+            lr = self.rate.fill_(lr)
+        neg_lr = -lr
+        self.count.add_(1)
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            ps = [p for p in group["params"] if p.grad is not None]
+            if not ps:
+                continue
+            grads = [p.grad for p in ps]
+            m = [self.state[p]["exp_avg"] for p in ps]
+            v = [self.state[p]["exp_avg_sq"] for p in ps]
+            torch._foreach_mul_(m, b1)
+            torch._foreach_add_(m, grads, alpha=1 - b1)
+            torch._foreach_mul_(v, b2)
+            torch._foreach_addcmul_(v, grads, grads, value=1 - b2)
+            m_hat = torch._foreach_div(m, 1 - torch.pow(b1, self.count))
+            v_hat = torch._foreach_div(v, 1 - torch.pow(b2, self.count))
+            torch._foreach_sqrt_(v_hat)
+            torch._foreach_add_(v_hat, group["eps"])
+            update = torch._foreach_div(m_hat, v_hat)
+            torch._foreach_add_(update, ps, alpha=group["weight_decay"])
+            torch._foreach_mul_(update, neg_lr)
+            torch._foreach_add_(ps, update)
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """torch's load, then every value copied into this optimizer's own
+        state tensors (on the parameters' device)."""
+        own = dict(self.state)
+        super().load_state_dict(state_dict)
+        for p, loaded in self.state.items():
+            for k, v in loaded.items():
+                own[p][k].copy_(v)
+        self.state = collections.defaultdict(dict, own)
+
+
+def make_optimizer(model: nn.Module, cfg: TrainCfg) -> AdamW:
     """optax.adamw(b1 0.9, b2 0.999, eps 1e-8, weight_decay) over every
-    parameter; the rate is set before each step."""
-    return torch.optim.AdamW(model.parameters(), lr=cfg.base_lr,
-                             betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=cfg.weight_decay)
+    parameter; the rate is given at each step."""
+    return AdamW(model.parameters(), lr=cfg.base_lr, betas=(0.9, 0.999),
+                 eps=1e-8, weight_decay=cfg.weight_decay)
 
 
 def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float
@@ -109,14 +184,14 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float
     return norm
 
 
-def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
-               lr: float, batch: augment.Batch, cfg: TrainCfg,
+def train_step(model: nn.Module, optimizer: AdamW,
+               lr, batch: augment.Batch, cfg: TrainCfg,
                draws: augment.AugDraw | None = None,
                mesh: mesh_lib.Mesh | None = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """augment (when draws are given) -> forward -> BCE -> backward ->
-    clip -> AdamW at rate lr. Returns (loss, train accuracy against the
-    original labels) as device scalars.
+    clip -> AdamW at rate lr (a float or a 0-d f32 device tensor). Returns
+    (loss, train accuracy against the original labels) as device scalars.
 
     Under a mesh, batch is this rank's rows of the global batch and draws
     are the global batch's: the partners are gathered from every rank, and
@@ -143,33 +218,88 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     if mesh is not None:
         mesh_lib.all_reduce_mean_(mesh, grads)
     clip_by_global_norm_(grads, cfg.grad_clip_norm)
-    for group in optimizer.param_groups:
-        group["lr"] = lr
-    optimizer.step()
+    optimizer.step(lr)
     acc = ((logits.detach() > 0).float() == labels).float().mean()
     return loss.detach(), acc
 
 
-@torch.no_grad()
+class Predictor:
+    """Eval-mode f32 logits of `model` on the rows of (feats, scals),
+    tensors on the model's device: the JAX package's make_eval_step and
+    the padding of its evaluate (tpu_breath/train/loop.py:203-233). Rows go
+    in batches of batch_size, the tail padded with its last row and the
+    padding's logits dropped, so every batch has one shape.
+
+    On the card each batch is one replay of a CUDA graph of the gather and
+    the forward (one graph per global flags, graphs.global_flags, captured
+    at its first use and kept while the Predictor lives); the logits are
+    gathered on the device and copied into a pinned host tensor, readable
+    after one graphs.wait. The model's parameters and statistics change in
+    place (AdamW, load_state_dict), so one graph serves a whole fit. On the
+    CPU, or inside graphs.eager(), the same program runs eagerly."""
+
+    def __init__(self, model: nn.Module, feats: torch.Tensor,
+                 scals: torch.Tensor, batch_size: int):
+        self.model, self.feats, self.scals = model, feats, scals
+        self.batch_size = batch_size
+        self.graphs: dict = {}
+
+    def forward(self, rows: torch.Tensor) -> torch.Tensor:
+        """The program: logits [batch_size] of rows (int64 on the device)."""
+        return self.model(self.feats[rows], self.scals[rows]).float()
+
+    @torch.no_grad()
+    def __call__(self, n: int | None = None) -> torch.Tensor:
+        """Logits [n] of rows [0, n) (all by default), in a host tensor
+        that is complete once the current stream is done (graphs.wait)."""
+        n = self.feats.shape[0] if n is None else n
+        device = self.feats.device
+        cuda = device.type == "cuda"
+        self.model.eval()
+        b = self.batch_size
+        n_pad = -(-n // b) * b
+        rows = torch.arange(n_pad, device=device).clamp_(max=max(n - 1, 0))
+        out = torch.empty(n_pad, dtype=torch.float32, device=device)
+        key = graphs.global_flags()
+        for lo in range(0, n_pad, b):
+            r = rows[lo:lo + b]
+            if not graphs.replays(device):
+                out[lo:lo + b] = self.forward(r)
+                continue
+            graph = self.graphs.get(key)
+            if graph is None:
+                graph = self.graphs[key] = graphs.Graph(self.forward, (r,),
+                                                        device)
+            out[lo:lo + b] = graph(r)
+        host = torch.empty(n, dtype=torch.float32, pin_memory=cuda)
+        return host.copy_(out[:n], non_blocking=cuda)
+
+
 def predict_logits(model: nn.Module, feats: torch.Tensor,
                    scals: torch.Tensor, batch_size: int) -> np.ndarray:
-    """Eval-mode f32 logits [N] of tensors already on the model's device."""
-    model.eval()
-    out = [model(feats[lo:lo + batch_size], scals[lo:lo + batch_size]
-                 ).float() for lo in range(0, feats.shape[0], batch_size)]
-    if not out:
-        return np.empty(0, np.float32)
-    return torch.cat(out).cpu().numpy()
+    """Eval-mode f32 logits [N] of tensors already on the model's device,
+    through a Predictor (one wait on the card)."""
+    predict = Predictor(model, feats, scals, batch_size)
+    logits = predict()
+    if feats.device.type == "cuda":
+        graphs.wait(feats.device)
+    del predict
+    graphs.release(feats.device)
+    return logits.numpy()
 
 
-def evaluate(model: nn.Module, feats: torch.Tensor, scals: torch.Tensor,
-             labels_np: np.ndarray, batch_size: int,
+def evaluate(predict: Predictor, labels_np: np.ndarray,
              drop_last: bool = False) -> dict:
     """Loss, accuracy, AUC, precision, recall, F1 and the probability range
-    over the split (the JAX package's evaluate)."""
+    over predict's rows (the JAX package's evaluate). Work queued on the
+    current stream before the call (fit's epoch means) is complete after
+    it: it waits once."""
     n = len(labels_np)
-    n_use = (n // batch_size) * batch_size if drop_last else n
-    logits = predict_logits(model, feats[:n_use], scals[:n_use], batch_size)
+    n_use = (n // predict.batch_size) * predict.batch_size if drop_last else n
+    logits = predict(n_use)
+    if predict.feats.device.type == "cuda":
+        graphs.wait(predict.feats.device)
+    logits = logits.numpy()
     labels = np.asarray(labels_np[:n_use])
     probs = 1.0 / (1.0 + np.exp(-logits))
     m = metrics_mod.binary_metrics(probs, labels)
@@ -202,14 +332,16 @@ def _snapshot(model: nn.Module) -> dict:
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
+@torch.no_grad()
 def fused_features(wavs: torch.Tensor, spec: FeatureSpec, chunk: int = 128
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The fused step's features of a gathered batch wavs [b, n]: chunks of
-    `chunk` clips (precompute's geometry, and on the card precompute's
-    captured graph) when b is a larger multiple of it, else one call
-    (tpu_breath/train/loop.py::_maybe_fused_features). On the card each
-    call is a replay of extract_features_compiled's graph, its outputs
-    copied out before the next; nothing waits on the host."""
+    """The fused step's features of a gathered batch wavs [b, n]:
+    extract_features on chunks of `chunk` clips (precompute's geometry)
+    when b is a larger multiple of it, else one call
+    (tpu_breath/train/loop.py::_maybe_fused_features). The same kernels as
+    precompute's chunk graph (features.extract_features_compiled), so the
+    features equal the cache's bit for bit; on the card the step's own
+    graph holds them (a graph cannot replay inside another's capture)."""
     b = wavs.shape[0]
     if not (b > chunk and b % chunk == 0):
         chunk = b
@@ -217,24 +349,24 @@ def fused_features(wavs: torch.Tensor, spec: FeatureSpec, chunk: int = 128
                         device=wavs.device)
     scals = torch.empty((b, spec.n_scalars), device=wavs.device)
     for lo in range(0, b, chunk):
-        f, s = extract_features_compiled(wavs[lo:lo + chunk], spec)
+        f, s = extract_features(wavs[lo:lo + chunk], spec)
         feats[lo:lo + chunk].copy_(f)
         scals[lo:lo + chunk].copy_(s)
     return feats, scals
 
 
-def fit_step(model: nn.Module, optimizer: torch.optim.Optimizer, lr: float,
-             data: tuple, rows: torch.Tensor | None, cfg: TrainCfg,
-             gen: torch.Generator, use_aug: bool,
-             fused_spec: FeatureSpec | None = None,
+def fit_step(model: nn.Module, optimizer: AdamW, lr, data: tuple,
+             rows: torch.Tensor | None, cfg: TrainCfg, gen: torch.Generator,
+             use_aug, fused_spec: FeatureSpec | None = None,
              mesh: mesh_lib.Mesh | None = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """One step of fit on the rows `rows` of data (rows None: data are the
     batch): data is (features, scalars, labels), or in fused mode (wavs,
     labels) and fused_features turns the wavs into features and scalars;
-    then the augmentation of the global batch (cfg.batch_size rows) drawn
-    from gen when use_aug, and train_step at rate lr. Returns train_step's
-    (loss, accuracy)."""
+    then the augmentation of the global batch (cfg.batch_size rows), drawn
+    from gen in every step and gated by use_aug (a bool or a bool device
+    scalar), as the JAX package draws and gates it; and train_step at rate
+    lr. Returns train_step's (loss, accuracy)."""
     def take(t):
         return t if rows is None else t[rows]
     *x, labels = data
@@ -245,11 +377,62 @@ def fit_step(model: nn.Module, optimizer: torch.optim.Optimizer, lr: float,
         x = [take(t) for t in x]
     batch = augment.Batch(*x, take(labels))
     _, _, h, w = batch.features.shape
-    draws = (augment.draw(gen, cfg.batch_size, h, w, cfg.cutmix_alpha,
-                          cfg.mixup_alpha, batch.labels.device)
-             if use_aug else None)
+    draws = augment.gate(augment.draw(gen, cfg.batch_size, h, w,
+                                      cfg.cutmix_alpha, cfg.mixup_alpha,
+                                      batch.labels.device), use_aug)
     args = (model, optimizer, lr, batch, cfg, draws)
     return train_step(*args) if mesh is None else train_step(*args, mesh)
+
+
+class TrainStep:
+    """fit's step as one program (the JAX package's jitted make_train_step,
+    tpu_breath/train/loop.py:84-200): step(rows, lr, use_aug) -> (loss,
+    accuracy) device scalars, fit_step on the rows of data, the resident
+    train split (cached: (features, scalars, labels); fused_spec given:
+    (wavs, labels)). rows [batch_size] int64, lr () f32 and use_aug () bool
+    are tensors on data's device; gen is the augmentation's generator.
+
+    On the card, the first call runs the step eagerly on the capture stream
+    (the run's real first step) and captures it (graphs.Graph, gen
+    registered, a capture advancing no generator); every later call copies
+    its inputs in and replays the whole step with one launch, with no host
+    wait. One graph per global flags (graphs.global_flags), kept while the
+    TrainStep lives. The returned scalars are the graph's static outputs:
+    copy them before the next call. On the CPU, or inside graphs.eager(),
+    every call runs the step eagerly."""
+
+    def __init__(self, model: nn.Module, optimizer: AdamW, data: tuple,
+                 cfg: TrainCfg, gen: torch.Generator,
+                 fused_spec: FeatureSpec | None = None):
+        self.model, self.optimizer, self.data = model, optimizer, data
+        self.cfg, self.gen, self.fused_spec = cfg, gen, fused_spec
+        self.graphs: dict = {}
+
+    def body(self, rows: torch.Tensor, lr: torch.Tensor,
+             use_aug: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        return fit_step(self.model, self.optimizer, lr, self.data, rows,
+                        self.cfg, self.gen, use_aug, self.fused_spec)
+
+    def __call__(self, rows: torch.Tensor, lr: torch.Tensor,
+                 use_aug: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        device = rows.device
+        if not graphs.replays(device):
+            return self.body(rows, lr, use_aug)
+        key = graphs.global_flags()
+        graph = self.graphs.get(key)
+        if graph is None:
+            graph = self.graphs[key] = graphs.Graph(
+                self.body, (rows, lr, use_aug), device, generators=(self.gen,))
+            return graph.warm_out
+        return graph(rows, lr, use_aug)
+
+
+def _upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """x on device without a host wait (pinned staging on the card)."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 @reproducible()
@@ -271,8 +454,15 @@ def fit(model: nn.Module, train_store, val_store, train_labels, val_labels,
     mode's.
 
     mesh: data parallelism (the module docstring); every rank passes the
-    whole split and keeps its host shard. Without a mesh the train split
-    lives on the device and a step gathers its batch by index.
+    whole split and keeps its host shard, and each step runs eagerly
+    (fit_step): ranks sharing a card reduce over gloo, whose collectives a
+    CUDA graph cannot hold. Without a mesh the train split lives on the
+    device, a step gathers its batch by index, and every step is a call of
+    one TrainStep (on the card: the first step eager and captured, every
+    later one a replay); the validation split goes through one Predictor
+    (on the card one replay a padded batch). Both, with their graphs, are
+    released when fit returns. An epoch waits on the host once, at its end,
+    for its loss, accuracy and validation logits.
 
     The whole run is inside reproducible(), with no way to leave it: the
     JAX package's contract that a seed fixes the history."""
@@ -339,46 +529,62 @@ def fit(model: nn.Module, train_store, val_store, train_labels, val_labels,
     best_weights = _snapshot(model)
     early_stop = 0
     history: list[dict] = []
-    cuda_devices = [device.index or 0] if device.type == "cuda" else []
+    cuda = device.type == "cuda"
+    cuda_devices = [device.index or 0] if cuda else []
+    # one augmentation generator, re-seeded in place each epoch
+    gen = torch.Generator(device=device)
+    predict = Predictor(model, feats_va, scals_va, cfg.eval_batch_size)
+    run_step = (TrainStep(model, optimizer, train_tr, cfg, gen, fused_spec)
+                if mesh is None else None)
+    gate = {on: torch.full((), on, dtype=torch.bool, device=device)
+            for on in (False, True)}
+    losses = torch.empty(steps_per_epoch, device=device)
+    accs = torch.empty(steps_per_epoch, device=device)
+    means_host = torch.empty(2, dtype=torch.float64, pin_memory=cuda)
+
+    def step_into(s: int, item: torch.Tensor, lr: torch.Tensor,
+                  use_aug: bool) -> None:
+        """Step s of an epoch, its loss and accuracy copied into the epoch's
+        buffers (a graph's next replay overwrites its outputs)."""
+        if mesh is None:
+            loss, acc = run_step(item, lr, gate[use_aug])
+        else:  # this rank's streamed rows
+            loss, acc = fit_step(model, optimizer, lr, item, None, cfg, gen,
+                                 use_aug, fused_spec, mesh)
+        losses[s].copy_(loss)
+        accs[s].copy_(acc)
+
     layers.set_mesh(model, mesh)  # None: each layer's own code
     for epoch in range(start_epoch, cfg.num_epochs):
         t0 = time.time()
         use_aug = epoch >= cfg.warmup_epochs
         aug_seed, drop_seed = epoch_seeds(cfg.seed, epoch)
-        gen = torch.Generator(device=device).manual_seed(aug_seed)
+        gen.manual_seed(aug_seed)
+        rates = _upload(np.float32([schedule(step + s)
+                                    for s in range(steps_per_epoch)]), device)
         if mesh is None:
-            perm = torch.from_numpy(epoch_permutation(
-                cfg.seed, epoch, n_train)).to(device)
+            perm = _upload(epoch_permutation(cfg.seed, epoch, n_train),
+                           device)
             batches = (perm[s * b:(s + 1) * b]
                        for s in range(steps_per_epoch))
         else:
             batches = loader.stream_batches(
                 host, local_batch, epoch_rng(cfg.seed, epoch), depth=2,
                 device=device, max_batches=steps_per_epoch)
-        losses, accs = [], []
         with torch.random.fork_rng(devices=cuda_devices):
             torch.manual_seed(drop_seed)  # dropout masks
-            for item in batches:
+            for s, item in enumerate(batches):
                 # the ranges name a step's spans in a --profile trace
                 with record_function("train_step"):
-                    # this rank's streamed rows, or rows of the split
-                    data, rows = ((item, None) if mesh is not None
-                                  else (train_tr, item))
-                    loss, acc = fit_step(model, optimizer, schedule(step),
-                                         data, rows, cfg, gen, use_aug,
-                                         fused_spec, mesh)
+                    step_into(s, item, rates[s], use_aug)
                 step += 1
-                losses.append(loss)
-                accs.append(acc)
-        means = torch.stack([torch.stack(losses).double().mean(),
-                             torch.stack(accs).double().mean()])
+        means = torch.stack([losses.double().mean(), accs.double().mean()])
         if mesh is not None:  # the global batch's means
             mesh_lib.all_reduce_mean_(mesh, [means])
-        train_loss, train_acc = (float(v) for v in means)
-
-        val = evaluate(model, feats_va, scals_va, val_labels,
-                       cfg.eval_batch_size,
+        means_host.copy_(means, non_blocking=cuda)
+        val = evaluate(predict, val_labels,  # the epoch's one wait
                        drop_last=cfg.parity_drop_last_eval)
+        train_loss, train_acc = means_host.tolist()
         if mesh is not None:  # one decision on every rank
             val = mesh_lib.broadcast_object(mesh, val)
         row = {"epoch": epoch + 1, "train_loss": train_loss,
@@ -418,8 +624,12 @@ def fit(model: nn.Module, train_store, val_store, train_labels, val_labels,
                        f"(best val acc {best_val_acc:.4f})")
                 break
     layers.set_mesh(model, None)
+    # the gradients of a captured step live in its graph's pool
+    optimizer.zero_grad(set_to_none=True)
+    del step_into, run_step, predict  # and their graphs
+    graphs.release(device)
 
     if cfg.restore_best_weights:
-        model.load_state_dict(best_weights)
+        model.load_state_dict(best_weights)  # copy_ into the live tensors
     return FitResult(best_val_acc=best_val_acc, best_ckpt_path=best_ckpt,
                      model=model, history=history)
