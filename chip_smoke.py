@@ -76,11 +76,20 @@ no result line):
      train --fused ... --predict with TPU_BREATH_PALLAS_GT=1, cuDNN flags
      at their defaults: equal histories, A/B''/C launched 192/96/96
      times, a submission;
-  mesh. data parallelism (parallel/mesh.py): fit's streaming path on one
-     NCCL rank against the resident path (cached CNN8, batch 512, 2
-     epochs, f32: train accuracy equal, losses within 1e-3) and a warm
-     streamed step under the sync check; then two ranks sharing the card
-     over gloo, started as torchrun starts them: precompute --mesh 2
+  mesh. data parallelism (parallel/mesh.py): (i) one NCCL rank in this
+     process, where the mesh's programs replay CUDA graphs: the streamed
+     step programs graphed against eager, 8 steps of CNN8 and VGG,
+     cached and fused, bit-equal (the fused graph A 8 / B 4 / C 4), then
+     for CNN8 in turns ms a step (CUDA events, the loader included), host
+     ms to issue one and a traced step (host launches, kernels, busy
+     share); fit's streaming path (graphed) against the resident path
+     (cached CNN8, batch 512, 2 epochs, f32: train accuracy equal, losses
+     within 1e-3); a graphed fit's epochs waiting on the host once under
+     sync debug mode "error"; the sharded precompute of phase 6's clips
+     (kernel B''), eager and graphed in turns, bit-equal to phase 6's
+     cache, clips/s, one host wait a call; printed as {"mesh": ...};
+     (ii) two ranks sharing the card over gloo (eager), started as
+     torchrun starts them: precompute --mesh 2
      (TPU_BREATH_PALLAS_GT=1) gives phase 6's cache bit for bit, train
      --mesh 2 cnn8,vgg (6 epochs, augmentation from the 5th) and train
      --fused --mesh 2 cnn8 (2 epochs, kernel B) end with
@@ -114,9 +123,12 @@ no result line):
      kernels it holds), then the last line: {"ok": true, "device": {...}}.
 
 With --cards N (N cards): phases 1 and 2, then the seeded dataset's
-precompute in one process and mesh_runs over N ranks, one a card over
-NCCL: precompute --mesh N bit-equal to it, train --mesh N cnn8,vgg and
-train --fused --mesh N cnn8 with bit-equal weights on every rank; then the
+precompute in one process, cached CNN8 and VGG fits on one NCCL rank with
+their step times, and mesh_runs over N ranks, one a card over NCCL (the
+mesh's graphs): precompute --mesh N bit-equal to it, train --mesh N
+cnn8,vgg and train --fused --mesh N cnn8 with bit-equal weights on every
+rank, each train run again inside graphs.eager() with the same weights
+bit for bit; the step times at 1 and N ranks as {"cards": ...}; then the
 last line.
 """
 from __future__ import annotations
@@ -1547,36 +1559,58 @@ def phase_fused(tmp: str) -> dict:
     return res
 
 
-# One rank of a data-parallel CLI run (phase_mesh): cli.main(argv) with the
-# launcher's environment; writes {"launches", "step_ms"} (the kernels'
-# launches and each train step's host time, synchronized) and each fit's
-# final state_dict to OUT.
+# One rank of a data-parallel CLI run (phase_mesh): cli.main(ARGV) with
+# the launcher's environment, inside graphs.eager() when MODE is "eager";
+# writes {"launches", "step_ms"} (the kernels' launches and each train
+# step's host time, synchronized: step_timer) and each fit's final
+# state_dict to OUT. Arguments: MODE OUT ARGV...
 RANK_CODE = """
-import json, os, sys, time
+import contextlib, json, os, sys
 import torch
 import chip_smoke
-from tpu_breath_torch import cli
+from tpu_breath_torch import cli, graphs
 from tpu_breath_torch.train import loop
-out, argv = sys.argv[1], sys.argv[2:]
+mode, out, argv = sys.argv[1], sys.argv[2], sys.argv[3:]
 rank = os.environ["RANK"]
-fit, step, step_ms = loop.fit, loop.train_step, []
-def timed_step(*a, **k):
-    t0 = time.perf_counter()
-    r = step(*a, **k)
-    torch.cuda.synchronize()
-    step_ms.append((time.perf_counter() - t0) * 1e3)
-    return r
+fit, step_ms = loop.fit, []
 def fit_and_keep(model, *a, **k):
     r = fit(model, *a, **k)
     torch.save(r.model.state_dict(),
                os.path.join(out, type(model).__name__ + "_rank" + rank + ".pt"))
     return r
-loop.fit, loop.train_step = fit_and_keep, timed_step
+loop.fit = fit_and_keep
 chip_smoke.reset_launches()
-cli.main(argv)
+with chip_smoke.step_timer(step_ms), (
+        graphs.eager() if mode == "eager" else contextlib.nullcontext()):
+    cli.main(argv)
 with open(os.path.join(out, "rank" + rank + ".json"), "w") as f:
     json.dump({"launches": chip_smoke.read_launches(), "step_ms": step_ms}, f)
 """
+
+
+@contextlib.contextmanager
+def step_timer(ms: list):
+    """Inside the block every call of a train step program
+    (loop.TrainStep) is timed on the host clock with the card synchronized
+    after it (outside any capture: a first call's warm call and capture
+    are one call); [model class, ms] appended to ms."""
+    from tpu_breath_torch.train import loop
+
+    call = loop.TrainStep.__call__
+
+    def timed(self, *xs):
+        t0 = time.perf_counter()
+        out = call(self, *xs)
+        torch.cuda.synchronize()
+        ms.append([type(self.model).__name__,
+                   (time.perf_counter() - t0) * 1e3])
+        return out
+
+    loop.TrainStep.__call__ = timed
+    try:
+        yield
+    finally:
+        loop.TrainStep.__call__ = call
 
 
 def free_port() -> int:
@@ -1587,12 +1621,13 @@ def free_port() -> int:
 
 
 def run_ranks(argv: list[str], out: str, env: dict | None = None,
-              world: int = 2) -> list[dict]:
-    """`world` processes of RANK_CODE on this card, started as torchrun
-    starts them (RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE,
-    MASTER_ADDR, MASTER_PORT), each running cli.main(argv); every process
-    is waited for. Returns each rank's {"launches", "step_ms", "log"};
-    raises if a rank fails."""
+              world: int = 2, mode: str = "graph") -> list[dict]:
+    """`world` processes of RANK_CODE, started as torchrun starts them
+    (RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR,
+    MASTER_PORT), each running cli.main(argv) on cuda:(rank % cards),
+    inside graphs.eager() when mode is "eager"; every process is waited
+    for. Returns each rank's {"launches", "step_ms", "log"}; raises if a
+    rank fails."""
     os.makedirs(out, exist_ok=True)
     port = free_port()
     procs = []
@@ -1602,7 +1637,7 @@ def run_ranks(argv: list[str], out: str, env: dict | None = None,
                 "LOCAL_WORLD_SIZE": str(world), "MASTER_ADDR": "127.0.0.1",
                 "MASTER_PORT": str(port), "PYTHONPATH": ROOT}
         procs.append(subprocess.Popen(
-            [sys.executable, "-c", RANK_CODE, out, *argv], env=penv,
+            [sys.executable, "-c", RANK_CODE, mode, out, *argv], env=penv,
             cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
     logs = []
@@ -1628,109 +1663,375 @@ def run_ranks(argv: list[str], out: str, env: dict | None = None,
     return out_json
 
 
-def same_weights(out: str, names: list[str], world: int = 2) -> None:
-    """Every rank's final weights of each model in names are bit-equal."""
+def same_weights(outs: list[str], names: list[str], world: int = 2) -> None:
+    """Every rank's final weights of each model in names are bit-equal, in
+    every run directory of outs (rank 0 of outs[0] the reference)."""
     for name in names:
-        sds = [torch.load(os.path.join(out, f"{name}_rank{r}.pt"),
-                          map_location="cpu") for r in range(world)]
-        for r, sd in enumerate(sds[1:], 1):
-            bad = [k for k, v in sds[0].items() if not torch.equal(v, sd[k])]
-            if bad:
-                raise AssertionError(f"{name}: rank {r}'s weights differ "
-                                     f"from rank 0's: {bad[:5]}")
+        ref = torch.load(os.path.join(outs[0], f"{name}_rank0.pt"),
+                         map_location="cpu")
+        for out in outs:
+            for r in range(world):
+                sd = torch.load(os.path.join(out, f"{name}_rank{r}.pt"),
+                                map_location="cpu")
+                bad = [k for k, v in ref.items() if not torch.equal(v, sd[k])]
+                if bad:
+                    raise AssertionError(
+                        f"{name}: rank {r}'s weights in {out} differ from "
+                        f"rank 0's in {outs[0]}: {bad[:5]}")
+
+
+@contextlib.contextmanager
+def one_rank():
+    """This process as the one rank of an NCCL mesh (the launcher's
+    variables set for the block, the group destroyed after it)."""
+    import torch.distributed as dist
+
+    from tpu_breath_torch.parallel import mesh as mesh_lib
+
+    names = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+             "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
+             "MASTER_PORT": str(free_port())}
+    os.environ.update(names)
+    try:
+        mesh = mesh_lib.make_mesh("cuda")
+        log(f"[mesh] {mesh_lib.describe(mesh)}")
+        if mesh.backend != "nccl":
+            raise AssertionError(f"one rank a card should be nccl: {mesh}")
+        yield mesh
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in names:
+            os.environ.pop(k, None)
+
+
+def _stream(arrays: tuple, steps: int, seed: int):
+    """steps batches of STEP_BATCH rows of the host arrays (rows drawn from
+    seed), gathered on the host and handed over by loader.Prefetcher from
+    pinned memory, as fit streams a rank's shard."""
+    from tpu_breath_torch.data import loader
+
+    rng = np.random.default_rng(seed)
+
+    def batches():
+        for _ in range(steps):
+            idx = rng.permutation(len(arrays[0]))[:STEP_BATCH]
+            yield tuple(np.ascontiguousarray(a[idx]) for a in arrays)
+
+    return loader.Prefetcher(batches(), depth=2, device="cuda")
+
+
+def _mesh_programs(arch: str, fused: bool, mesh):
+    """Two streamed step programs (loop.TrainStep, data None) of `arch` at
+    batch 512 on mesh from one seeded state: each its own model (seed 0,
+    its layers on the mesh), optimizer and augmentation generator (seed
+    1)."""
+    from tpu_breath_torch.config import CNN8_TRAIN, DEFAULT_FEATURES, VGG_TRAIN
+    from tpu_breath_torch.models import layers, registry
+    from tpu_breath_torch.train import loop
+
+    cfg = dataclasses.replace({"cnn8": CNN8_TRAIN, "vgg": VGG_TRAIN}[arch],
+                              batch_size=STEP_BATCH)
+    out = []
+    for _ in range(2):
+        model = registry.build(arch, 36, seed=0).cuda()
+        layers.set_mesh(model, mesh)
+        opt = loop.make_optimizer(model, cfg)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        out.append((model, opt, loop.TrainStep(
+            model, opt, None, cfg, gen, DEFAULT_FEATURES if fused else None,
+            mesh)))
+    return out
+
+
+def _drive_stream(step, arrays: tuple, data: dict, steps: int, seed: int
+                  ) -> tuple[list, list]:
+    """steps calls of step on streamed batches (seed) at data's rates,
+    augmentation on, the dropout generator seeded first; (losses,
+    accuracies) as floats."""
+    torch.manual_seed(2)
+    losses, accs = [], []
+    for s, batch in enumerate(_stream(arrays, steps, seed)):
+        loss, acc = step(*batch, data["lrs"][s], data["on"])
+        losses.append(loss.clone())
+        accs.append(acc.clone())
+    return torch.stack(losses).tolist(), torch.stack(accs).tolist()
+
+
+def _stream_ms(step, arrays: tuple, data: dict, seed: int
+               ) -> tuple[float, list]:
+    """ms a step by CUDA events over STEPS streamed steps (the loader's
+    host gather and hand-over included, as fit runs them), and the host's
+    ms to issue each step's call."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    issue = []
+    torch.cuda.synchronize()
+    start.record()
+    for s, batch in enumerate(_stream(arrays, STEPS, seed)):
+        t0 = time.perf_counter()
+        step(*batch, data["lrs"][s], data["on"])
+        issue.append((time.perf_counter() - t0) * 1e3)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / STEPS, issue
+
+
+def mesh_steps(mesh, smi: str) -> dict:
+    """(i) a: the streamed step programs (loop.TrainStep, data None) on one
+    NCCL rank, graphed against eager (graphs.eager()), batch 512 on the
+    bench's seeded clips streamed from the host: for CNN8 and VGG, cached
+    and fused (kernel B), two programs from one seeded state run 8 steps
+    each on the same batches, augmentation on: losses, accuracies, every
+    parameter and buffer, both moments and the step count bit-equal, the
+    fused graph holding A 8 / B 4 / C 4. Then for CNN8, cached and fused,
+    in turns (eager, graph, graph, eager): ms a step (CUDA events over 8
+    streamed steps, the loader included), the host's ms to issue a step's
+    call, one traced step (kernels, host launches, busy share)."""
+    from tpu_breath_torch import bench, graphs
+    from tpu_breath_torch.features import extract_features_batched
+    from tpu_breath_torch.train import loop
+    from tpu_breath_torch.train.schedule import warmup_cosine
+
+    wavs = bench.noise(2 * STEP_BATCH)
+    f, s = extract_features_batched(wavs, chunk=CHUNK)
+    labels = np.tile(np.float32([0.0, 1.0]), STEP_BATCH)
+    lr = warmup_cosine(1e-3, 100)
+    data = {"lrs": torch.tensor([lr(k) for k in range(STEPS)],
+                                dtype=torch.float32).cuda(),
+            "on": torch.ones((), dtype=torch.bool).cuda()}
+    res = {"i": {}, "ms": {}, "issue_ms": {}, "trace": {}, "pools": []}
+    failed = []
+    with loop.reproducible():
+        for arch in STEP_KEYS:
+            for mode in ("cached", "fused"):
+                name = f"{arch} {mode}"
+                fused = mode == "fused"
+                arrays = (wavs, labels) if fused else (f, s, labels)
+                (me, oe, se), (mg, og, sg) = _mesh_programs(arch, fused, mesh)
+                with graphs.eager():
+                    le, ae = _drive_stream(se, arrays, data, STEPS, 3)
+                lg, ag = _drive_stream(sg, arrays, data, STEPS, 3)
+                a, b = _state(me, oe), _state(mg, og)
+                diff = {k: float((a[k].double() - b[k].double()).abs().max())
+                        for k in a if not torch.equal(a[k], b[k])}
+                graph = next(iter(sg.graphs.values()))
+                res["i"][name] = {"losses_equal": le == lg,
+                                  "accs_equal": ae == ag, "tensors": len(a),
+                                  "unequal": diff,
+                                  "launches_a_replay": graph.launches}
+                res["pools"].append({"graph": f"mesh step {name}",
+                                     "capture_s": graph.capture_s,
+                                     "pool_bytes": graph.pool_bytes})
+                log(f"[mesh] (i) {name}, {STEPS} streamed steps on one NCCL "
+                    f"rank, eager vs graphed: losses equal {le == lg}, "
+                    f"accuracies equal {ae == ag}, {len(a) - len(diff)} of "
+                    f"{len(a)} tensors bit-equal"
+                    f"{'' if not diff else f'; max |diff| {diff}'}; graph "
+                    f"launches a replay {graph.launches}; capture (warm step "
+                    f"included) {graph.capture_s:.2f} s, pool "
+                    f"{graph.pool_bytes / 2**20:.0f} MiB")
+                want = {"A": 8, "B": 4, "C": 4} if fused else {}
+                if not (le == lg and ae == ag and not diff) or {
+                        k: v for k, v in graph.launches.items() if v} != want:
+                    failed.append(name)
+                if arch == "cnn8":
+                    ms, issue = {False: [], True: []}, {False: [], True: []}
+                    for graphed in (False, True, True, False):
+                        step = sg if graphed else se
+                        with (contextlib.nullcontext() if graphed
+                              else graphs.eager()):
+                            m, q = _stream_ms(step, arrays, data, 4)
+                        ms[graphed].append(m)
+                        issue[graphed] += q
+                    traces = {}
+                    for graphed, step in ((False, se), (True, sg)):
+                        it = iter(_stream(arrays, 10**6, 5))
+                        with (contextlib.nullcontext() if graphed
+                              else graphs.eager()):
+                            traces[graphed] = _traced(lambda: step(
+                                *next(it), data["lrs"][0], data["on"]))
+                    res["ms"][name] = {m: {"median": float(np.median(ms[g])),
+                                           "runs": ms[g]}
+                                       for m, g in (("eager", False),
+                                                    ("graph", True))}
+                    res["issue_ms"][name] = {
+                        m: float(np.median(issue[g]))
+                        for m, g in (("eager", False), ("graph", True))}
+                    res["trace"][name] = {"eager": traces[False],
+                                          "graph": traces[True]}
+                    te, tg = traces[False], traces[True]
+                    log(f"[mesh] (i) {name}, one NCCL rank, streamed, in "
+                        f"turns: ms a step (CUDA events, {STEPS} steps a "
+                        f"turn, the loader included): eager "
+                        f"{res['ms'][name]['eager']['median']:.2f} / graph "
+                        f"{res['ms'][name]['graph']['median']:.2f}; host ms "
+                        f"to issue a step: eager "
+                        f"{res['issue_ms'][name]['eager']:.3f} / graph "
+                        f"{res['issue_ms'][name]['graph']:.3f}; one step "
+                        f"traced (the next batch's hand-over included): "
+                        f"eager {te['host_launches']} host launches, "
+                        f"{te['kernels']} kernels, busy "
+                        f"{te['busy_of_span'] or 0:.1%} of "
+                        f"{te['span_ms']:.2f} ms, {te['busy_of_wall']:.1%} of "
+                        f"{te['wall_ms']:.2f} ms wall; graph "
+                        f"{tg['host_launches']} host launches, "
+                        f"{tg['kernels']} kernels, busy "
+                        f"{tg['busy_of_span'] or 0:.1%} of "
+                        f"{tg['span_ms']:.2f} ms, {tg['busy_of_wall']:.1%} of "
+                        f"{tg['wall_ms']:.2f} ms wall; {smi}")
+                del me, oe, se, mg, og, sg, graph
+                torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"mesh: graphed differs from eager: {failed}")
+    return res
+
+
+def mesh_epoch_waits_once(mesh, tr, va, y_tr, y_va) -> None:
+    """(i) c: a graphed fit on one NCCL rank (cached CNN8, batch 512, 3
+    epochs, augmentation from the second) queues each epoch after the
+    first (streamed uploads, step replays, the means' all-reduce,
+    evaluation replays) without a host synchronisation (sync debug mode
+    "error" from the end of the first epoch) until the epoch's one wait
+    (graphs.wait, where the check ends)."""
+    from tpu_breath_torch import graphs
+    from tpu_breath_torch.config import CNN8_TRAIN
+    from tpu_breath_torch.models import registry
+    from tpu_breath_torch.train import loop
+
+    waits, lines = [], []
+    wait = graphs.wait
+
+    def final_wait(device):
+        torch.cuda.set_sync_debug_mode(0)
+        waits.append(len(lines))
+        wait(device)
+
+    def log_fn(msg):  # an epoch ends: check the next one
+        lines.append(msg)
+        torch.cuda.set_sync_debug_mode("error")
+
+    cfg = dataclasses.replace(CNN8_TRAIN, num_epochs=3, warmup_epochs=1,
+                              patience=9)
+    graphs.wait = final_wait
+    try:
+        loop.fit(registry.build("cnn8", 36, seed=3), (tr.features,
+                                                      tr.scalars),
+                 (va.features, va.scalars), y_tr, y_va, cfg, log_fn=log_fn,
+                 mesh=mesh)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        graphs.wait = wait
+    if not (waits == [0, 1, 2] and len(lines) == 3):
+        raise AssertionError(f"graphed mesh epochs: waits {waits}")
+    log("[mesh] (i) a graphed streamed fit on one NCCL rank (3 epochs): "
+        "epochs 2 and 3 raised nothing under sync debug mode 'error' until "
+        "their one wait")
+
+
+def mesh_precompute(mesh, root: str, tmp: str, smi: str) -> dict:
+    """(i) d: the sharded extraction (extract_features_batched(...,
+    mesh=...), features._extract_sharded) on one NCCL rank with kernel B''
+    over phase 6's 1,536 clips, eager (graphs.eager()) and graphed in
+    turns after a warm call each: all bit-equal to phase 6's single-process cache, clips/s on
+    the host clock, host waits a call (graphs.wait), and a graphed call
+    raising nothing under sync debug mode "error" until its one wait."""
+    from tpu_breath_torch import graphs
+    from tpu_breath_torch.config import DEFAULT_FEATURES, Paths
+    from tpu_breath_torch.data import dataset as ds
+    from tpu_breath_torch.data import wav as wav_io
+    from tpu_breath_torch.features import extract_features_batched
+
+    _, paths = ds.dataset_wavs(Paths(root))
+    wavs = wav_io.load_wav_batch(paths, DEFAULT_FEATURES.expected_len)
+    cache = ds.FeatureStore.load_cache(Paths(root, tmp).feature_cache)
+    want = [torch.from_numpy(np.array(a))
+            for a in (cache.features, cache.scalars)]
+    wait, waits = graphs.wait, []
+
+    def counted(device):
+        torch.cuda.set_sync_debug_mode(0)
+        waits.append(device)
+        wait(device)
+
+    rate = {False: [], True: []}
+    count = {False: [], True: []}
+    graphs.wait = counted
+    try:
+        # a warm call each way first (uncounted): the first calls allocate
+        # the pinned arrays that later calls reuse
+        for k, graphed in enumerate((False, True, False, True, True, False)):
+            del waits[:]
+            torch.cuda.synchronize()
+            if graphed and k >= 2:  # check the queue for syncs
+                torch.cuda.set_sync_debug_mode("error")
+            t0 = time.perf_counter()
+            with contextlib.nullcontext() if graphed else graphs.eager():
+                got = extract_features_batched(wavs, chunk=CHUNK, mesh=mesh,
+                                               fused_gt=True)
+            dt = time.perf_counter() - t0
+            torch.cuda.set_sync_debug_mode(0)
+            if k >= 2:
+                rate[graphed].append(len(wavs) / dt)
+                count[graphed].append(len(waits))
+            if not all(_nan_equal(torch.from_numpy(g), w)
+                       for g, w in zip(got, want)):
+                raise AssertionError("the mesh's extraction differs from "
+                                     "the single process's cache")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        graphs.wait = wait
+    out = {m: {"clips_per_s": rate[g], "waits": count[g]}
+           for m, g in (("eager", False), ("graph", True))}
+    log(f"[mesh] (i) precompute on one NCCL rank (TPU_BREATH_PALLAS_GT=1), "
+        f"{len(wavs)} clips, in turns: bit-equal to phase 6's cache; clips/s "
+        f"(host clock) eager {out['eager']['clips_per_s']} / graph "
+        f"{out['graph']['clips_per_s']}; host waits a call eager "
+        f"{out['eager']['waits']} / graph {out['graph']['waits']}; a warm "
+        f"graphed call raised nothing under sync debug mode 'error' until "
+        f"its wait; {smi}")
+    if out["graph"]["waits"] != [1, 1]:
+        raise AssertionError(f"graphed precompute waited {count[True]}")
+    return out
 
 
 def phase_mesh(tmp: str, smi: str) -> dict:
-    """Data parallelism (parallel/mesh.py) on this card. (i) The streaming
-    path of fit(mesh=...) on one NCCL rank, cached CNN8, batch 512, 2
-    epochs, f32: its history matches the resident
-    path's (train accuracy equal, losses within 1e-3), and a warm streamed
-    step raises nothing under torch.cuda.set_sync_debug_mode("error").
-    (ii) Two ranks sharing the card over gloo, started as torchrun would:
-    precompute --mesh 2 with TPU_BREATH_PALLAS_GT=1 gives phase 6's cache
-    bit for bit; train --mesh 2 cnn8,vgg (cached, 6 epochs: augmentation
-    and its partner gather from epoch 5) and train --fused --mesh 2 cnn8
-    (2 epochs, kernel B) end with bit-equal weights on both ranks and finite
-    histories; A, B'', C (precompute) and A, B, C (fused) launch in each
-    rank (mesh_runs). Returns the launches summed over the ranks."""
-    import torch.distributed as dist
-
-    from tpu_breath_torch import augment, cli
+    """Data parallelism (parallel/mesh.py) on this card. (i) One NCCL rank
+    in this process: a, the streamed step programs graphed against eager
+    (mesh_steps); b, fit(mesh=...)'s streaming path (graphed) against the
+    resident path, cached CNN8, batch 512, 2 epochs, f32 (train accuracy
+    equal, losses within 1e-3); c, a graphed epoch's one host wait
+    (mesh_epoch_waits_once); d, the sharded extraction against phase 6's
+    cache (mesh_precompute). Prints {"mesh": ...}. (ii) Two ranks sharing
+    the card over gloo, started as torchrun would: precompute --mesh 2
+    with TPU_BREATH_PALLAS_GT=1 gives phase 6's cache bit for bit; train
+    --mesh 2 cnn8,vgg (cached, 6 epochs: augmentation and its partner
+    gather from epoch 5) and train --fused --mesh 2 cnn8 (2 epochs, kernel
+    B) end with bit-equal weights on both ranks and finite histories; A,
+    B'', C (precompute) and A, B, C (fused) launch in each rank
+    (mesh_runs). Returns the launches of (i) and the ranks of (ii)."""
+    from tpu_breath_torch import cli
     from tpu_breath_torch.config import CNN8_TRAIN, DEFAULT_FEATURES, Paths
-    from tpu_breath_torch.data import loader
-    from tpu_breath_torch.models import layers, registry
-    from tpu_breath_torch.parallel import mesh as mesh_lib
+    from tpu_breath_torch.models import registry
     from tpu_breath_torch.train import loop
 
     root = os.path.join(tmp, "input")
-    res = {}
-    # (i) one NCCL rank, in this process
-    os.environ.update({"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
-                       "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
-                       "MASTER_PORT": str(free_port())})
-    try:
-        mesh = mesh_lib.make_mesh("cuda")
-        log(f"[mesh] (i) {mesh_lib.describe(mesh)}")
-        if mesh.backend != "nccl":
-            raise AssertionError(f"one rank a card should be nccl: {mesh}")
+    t0 = time.perf_counter()
+    reset_launches()
+    with one_rank() as mesh:
+        res = {"device": smi, "steps": mesh_steps(mesh, smi)}
         tr, va, _, y_tr, y_va = cli._prepare_splits(
             Paths(root, tmp), DEFAULT_FEATURES, torch.device("cuda"))
         cfg = dataclasses.replace(CNN8_TRAIN, num_epochs=2)
+        hist = {}
         torch.backends.cudnn.allow_tf32 = False
-        hist, step_ms = {}, []
         try:
             for name, m in (("resident", None), ("streaming", mesh)):
                 model = registry.build("cnn8", 36, seed=cfg.seed, bf16=False)
-                t0 = time.perf_counter()
                 hist[name] = loop.fit(
                     model, (tr.features, tr.scalars), (va.features,
                                                        va.scalars),
                     y_tr, y_va, cfg, device="cuda", mesh=m,
                     log_fn=lambda msg: None).history
-                torch.cuda.synchronize()
-                log(f"[mesh] (i) {name} fit, 2 epochs: "
-                    f"{time.perf_counter() - t0:.2f} s; train loss "
-                    f"{[r['train_loss'] for r in hist[name]]}, acc "
-                    f"{[r['train_acc'] for r in hist[name]]}")
-            # a warm streamed step under the sync check
-            model = registry.build("cnn8", 36, seed=cfg.seed,
-                                   bf16=False).cuda()
-            opt = loop.make_optimizer(model, cfg)
-            host = [np.ascontiguousarray(tr.features, np.float32),
-                    np.ascontiguousarray(tr.scalars, np.float32),
-                    np.asarray(y_tr, np.float32)]
-            stream = iter(loader.stream_batches(
-                host, cfg.batch_size, np.random.default_rng(0),
-                device=mesh.device))
-            gen = torch.Generator(device="cuda").manual_seed(0)
-            layers.set_mesh(model, mesh)
-
-            def streamed_step():
-                f, sc, y = next(stream)
-                d = augment.draw(gen, cfg.batch_size, 128, 63,
-                                 cfg.cutmix_alpha, cfg.mixup_alpha, "cuda")
-                return loop.train_step(model, opt, 1e-4,
-                                       augment.Batch(f, sc, y), cfg, d, mesh)
-
-            streamed_step()
-            torch.cuda.synchronize()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                streamed_step()
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-            torch.cuda.synchronize()
-            layers.set_mesh(model, None)
-            stream = iter(loader.stream_batches(
-                host, cfg.batch_size, np.random.default_rng(1),
-                device=mesh.device))
-            layers.set_mesh(model, mesh)
-            for _ in range(2):
-                t0 = time.perf_counter()
-                streamed_step()
-                torch.cuda.synchronize()
-                step_ms.append((time.perf_counter() - t0) * 1e3)
-            layers.set_mesh(model, None)
         finally:
             torch.backends.cudnn.allow_tf32 = True
         dl = max(abs(a[k] - b[k]) for a, b in zip(hist["resident"],
@@ -1738,35 +2039,39 @@ def phase_mesh(tmp: str, smi: str) -> dict:
                  for k in ("train_loss", "val_loss"))
         same_acc = all(a["train_acc"] == b["train_acc"]
                        for a, b in zip(hist["resident"], hist["streaming"]))
-        log(f"[mesh] (i) streaming vs resident history: max |loss diff| "
-            f"{dl:.3g} (bound 1e-3), train acc equal {same_acc}; a warm "
-            f"streamed step raised nothing under sync debug mode 'error'; "
-            f"streamed step (1 NCCL rank, CNN8 f32, batch 512, host clock) "
-            f"{', '.join(f'{m:.2f}' for m in step_ms)} ms ({smi})")
+        log(f"[mesh] (i) streaming (graphed, one NCCL rank) vs resident "
+            f"history, CNN8 f32, 2 epochs: max |loss diff| {dl:.3g} (bound "
+            f"1e-3), train acc equal {same_acc}")
         if not (len(hist["streaming"]) == 2 and dl < 1e-3 and same_acc):
             raise AssertionError("streaming fit differs from the resident")
-        res["stream_ms"] = step_ms
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
-        for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
-                  "MASTER_ADDR", "MASTER_PORT"):
-            os.environ.pop(k, None)
+        res["stream_vs_resident_loss_diff"] = dl
+        mesh_epoch_waits_once(mesh, tr, va, y_tr, y_va)
+        res["precompute"] = mesh_precompute(mesh, root, tmp, smi)
+    torch.cuda.empty_cache()
+    launches = read_launches()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[mesh] (i) launches {launches}; {res['seconds']:.1f} s")
+    print(json.dumps({"mesh": res}), flush=True)
 
     # (ii) two ranks sharing the card over gloo
-    res.update(mesh_runs(tmp, root, 2, smi))
-    return res
+    out = mesh_runs(tmp, root, 2, smi)
+    for k in launches:
+        out["launches"][k] += launches[k]
+    return out
 
 
-def mesh_runs(tmp: str, root: str, world: int, smi: str) -> dict:
+def mesh_runs(tmp: str, root: str, world: int, smi: str,
+              against_eager: bool = False) -> dict:
     """`world` ranks started as torchrun starts them, each on
     cuda:(rank % cards): precompute --mesh with TPU_BREATH_PALLAS_GT=1
     against the single process's cache under root (bit for bit), train
     --mesh cnn8,vgg from that cache and train --fused --mesh cnn8 (bit-equal
     weights on every rank, finite histories, A/B''/C and A/B/C launched in
-    every rank). The backend must be the one make_mesh names for this many
-    ranks on this many cards. Returns the launches summed over the ranks
-    and the step times."""
+    every rank). against_eager: each train run again inside graphs.eager(),
+    its weights bit-equal to the graphed run's. The backend must be the one
+    make_mesh names for this many ranks on this many cards. Returns the
+    launches summed over the ranks (the graphed runs) and the step
+    times."""
     import shutil
 
     from tpu_breath_torch.config import Paths
@@ -1811,32 +2116,39 @@ def mesh_runs(tmp: str, root: str, world: int, smi: str) -> dict:
     runs = (("train", ["--archs", "cnn8,vgg"], ["CNN8", "VGG"], 6),
             ("fused", ["--fused", "--archs", "cnn8"], ["CNN8"], 2))
     for name, extra, models, epochs in runs:
-        out = os.path.join(tmp, f"mesh{world}_{name}")
-        t0 = time.perf_counter()
-        ranks = run_ranks(["train", *extra, "--epochs", str(epochs),
-                           *common, "--out-root", out], out, world=world)
-        wall = time.perf_counter() - t0
-        same_weights(out, models, world)
-        for arch in [m.lower() for m in models]:
-            h = read_history(out, arch)
-            if len(h) != epochs or not all(np.isfinite(
-                    [r["train_loss"], r["val_loss"]]).all() for r in h):
-                raise AssertionError(f"{name} {arch} history: {h}")
-        need = ("A", "B", "C") if name == "fused" else ()
-        for r, d in enumerate(ranks):
-            if need and min(d["launches"][k] for k in need) <= 0:
-                raise AssertionError(f"{name} rank {r}: {d['launches']}")
-        ms = [d["step_ms"] for d in ranks]
-        res[f"{name}_ms"] = ms
-        res[f"{name}_launches"] = [d["launches"] for d in ranks]
-        log(f"[mesh] train{' --fused' if name == 'fused' else ''} --mesh "
-            f"{world} {','.join(m.lower() for m in models)}, {epochs} "
-            f"epochs, global batch 512 ({512 // world} a rank), {where}: "
-            f"{wall:.2f} s with start-up; every rank's final weights "
-            f"bit-equal; histories finite; step ms (host clock, each "
-            f"synchronized) by rank "
-            f"{[[round(v, 2) for v in m] for m in ms]} ({smi}); launches "
-            f"by rank {res[f'{name}_launches']}")
+        outs = []
+        for mode in ("graph", "eager") if against_eager else ("graph",):
+            out = os.path.join(tmp, f"mesh{world}_{name}_{mode}")
+            t0 = time.perf_counter()
+            ranks = run_ranks(["train", *extra, "--epochs", str(epochs),
+                               *common, "--out-root", out], out, world=world,
+                              mode=mode)
+            wall = time.perf_counter() - t0
+            outs.append(out)
+            same_weights(outs, models, world)
+            for arch in [m.lower() for m in models]:
+                h = read_history(out, arch)
+                if len(h) != epochs or not all(np.isfinite(
+                        [r["train_loss"], r["val_loss"]]).all() for r in h):
+                    raise AssertionError(f"{name} {arch} history: {h}")
+            need = ("A", "B", "C") if name == "fused" else ()
+            for r, d in enumerate(ranks):
+                if need and min(d["launches"][k] for k in need) <= 0:
+                    raise AssertionError(f"{name} rank {r}: {d['launches']}")
+            ms = [d["step_ms"] for d in ranks]
+            key = name if mode == "graph" else f"{name}_eager"
+            res[f"{key}_ms"] = ms
+            res[f"{key}_launches"] = [d["launches"] for d in ranks]
+            log(f"[mesh] train{' --fused' if name == 'fused' else ''} --mesh "
+                f"{world} {','.join(m.lower() for m in models)}, {epochs} "
+                f"epochs, global batch 512 ({512 // world} a rank), {where}, "
+                f"{mode}: {wall:.2f} s with start-up; every rank's final "
+                f"weights bit-equal"
+                f"{' (and to the graphed run)' if mode == 'eager' else ''}; "
+                f"histories finite; step ms (host clock, each synchronized; "
+                f"the first includes a capture where the steps replay) by "
+                f"rank {[[(m, round(v, 2)) for m, v in r] for r in ms]} "
+                f"({smi}); launches by rank {res[f'{key}_launches']}")
     launches = {k: 0 for k in read_launches()}
     for by_rank in (res["pre_launches"], res["fused_launches"],
                     res["train_launches"]):
@@ -1850,13 +2162,49 @@ def mesh_runs(tmp: str, root: str, world: int, smi: str) -> dict:
 def phase_cards(tmp: str, smi: str, cards: int) -> None:
     """--cards N: data parallelism with one rank a card over NCCL, on the
     seeded synthetic dataset: the single process's precompute (kernel B'')
-    on card 0, then mesh_runs over N ranks."""
+    on card 0; one NCCL rank in this process, cached CNN8 and VGG fit
+    (4 epochs, batch 512) with each step timed as the ranks time theirs
+    (step_timer); then mesh_runs over N ranks, each train run graphed and
+    inside graphs.eager(), bit-equal; and the step times at 1 and N
+    ranks side by side."""
+    from tpu_breath_torch import cli
+    from tpu_breath_torch.config import DEFAULT_FEATURES, Paths
+    from tpu_breath_torch.models import registry
+    from tpu_breath_torch.train import loop
+
     root = os.path.join(tmp, "input")
     make_dataset(root)
     with gt_switch():
         run_cli(["precompute", "--root", root, "--out-root", tmp,
                  "--device", "cuda"])
-    mesh_runs(tmp, root, cards, smi)
+    one = []
+    with one_rank() as mesh:
+        tr, va, _, y_tr, y_va = cli._prepare_splits(
+            Paths(root, tmp), DEFAULT_FEATURES, torch.device("cuda"))
+        args = cli.build_parser().parse_args(["train", "--epochs", "4"])
+        with step_timer(one):
+            for arch in STEP_KEYS:
+                loop.fit(registry.build(arch, 36, seed=0),
+                         (tr.features, tr.scalars), (va.features,
+                                                     va.scalars),
+                         y_tr, y_va, cli._arch_cfg(arch, args), mesh=mesh,
+                         log_fn=lambda msg: None)
+    torch.cuda.empty_cache()
+    res = mesh_runs(tmp, root, cards, smi, against_eager=True)
+
+    def replays(ms, arch):  # each fit's first call captures
+        times = [v for m, v in ms if m == arch]
+        return float(np.median(times[1:]))
+
+    by = {arch: {"1": replays(one, arch),
+                 str(cards): [replays(r, arch) for r in res["train_ms"]],
+                 f"{cards}_eager": [replays(r, arch)
+                                    for r in res["train_eager_ms"]]}
+          for arch in ("CNN8", "VGG")}
+    log(f"[mesh] cached step ms (host clock, synchronized, median of the "
+        f"replays; global batch 512) at 1 NCCL rank vs {cards} (by rank, "
+        f"graphed and eager): {by}; {smi}")
+    print(json.dumps({"cards": {"device": smi, "step_ms": by}}), flush=True)
 
 
 def phase_profile(tmp: str) -> None:

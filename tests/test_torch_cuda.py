@@ -1143,3 +1143,165 @@ def test_graphed_epoch_waits_on_the_host_once(clips, monkeypatch):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert waits == [0, 1, 2] and len(lines) == 3
+
+
+@pytest.fixture(scope="module")
+def nccl_rank(clips):
+    """This process as the one rank of an NCCL mesh (the launcher's
+    variables set, the group destroyed after the module's tests)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from tpu_breath_torch.parallel import mesh as mesh_lib
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    names = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+             "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
+             "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in names}
+    os.environ.update(names)
+    try:
+        mesh = mesh_lib.make_mesh("cuda")
+        assert mesh.backend == "nccl" and mesh_lib.replays(mesh)
+        yield mesh
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _streamed(arrays, steps: int, seed: int):
+    """steps batches of 8 rows of the host arrays (rows drawn from seed)
+    through loader.Prefetcher onto the card, as fit streams them."""
+    from tpu_breath_torch.data import loader
+
+    rng = np.random.default_rng(seed)
+    return loader.Prefetcher(
+        (tuple(np.ascontiguousarray(a[idx]) for a in arrays)
+         for idx in (rng.permutation(len(arrays[0]))[:8]
+                     for _ in range(steps))), device="cuda")
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_mesh_step_graph_equals_eager(clips, nccl_rank, fused):
+    """One NCCL rank's streamed step program (loop.TrainStep, data None,
+    CNN8, batch 8 streamed from the host, augmentation on, dropout on),
+    cached or fused (kernel B): 8 steps graphed and 8 inside
+    graphs.eager() from one seeded state on the same batches give the same
+    losses, accuracies, parameters, buffers, moments and step count bit
+    for bit, from one captured graph."""
+    from tpu_breath_torch import graphs
+    from tpu_breath_torch.config import DEFAULT_FEATURES as SPEC
+    from tpu_breath_torch.config import TrainCfg
+    from tpu_breath_torch.models import layers, registry
+    from tpu_breath_torch.train import loop
+
+    wavs, f, s, y = _fit_data(clips)
+    arrays = (wavs, y) if fused else (f, s, y)
+    cfg = TrainCfg(batch_size=8)
+    lrs = torch.linspace(1e-3, 5e-4, 8, device="cuda")
+    on = torch.ones((), dtype=torch.bool, device="cuda")
+
+    def run():
+        model = registry.build("cnn8", 36, seed=3).cuda()
+        layers.set_mesh(model, nccl_rank)
+        opt = loop.make_optimizer(model, cfg)
+        step = loop.TrainStep(model, opt, None, cfg,
+                              torch.Generator(device="cuda").manual_seed(1),
+                              SPEC if fused else None, nccl_rank)
+        torch.manual_seed(2)
+        out = [tuple(t.clone() for t in step(*batch, lrs[k], on))
+               for k, batch in enumerate(_streamed(arrays, 8, seed=4))]
+        state = dict(model.state_dict())
+        for i, p in enumerate(model.parameters()):
+            state[f"m{i}"] = opt.state[p]["exp_avg"]
+            state[f"v{i}"] = opt.state[p]["exp_avg_sq"]
+        state["count"] = opt.count
+        return out, state, len(step.graphs)
+
+    with loop.reproducible():
+        with graphs.eager():
+            eager, se, n_eager = run()
+        graphed, sg, n_graphed = run()
+    assert (n_eager, n_graphed) == (0, 1)
+    assert all(torch.equal(a, b) for e, g in zip(eager, graphed)
+               for a, b in zip(e, g))
+    assert all(torch.equal(se[k], sg[k]) for k in se)
+
+
+def test_graphed_mesh_epoch_waits_on_the_host_once(clips, nccl_rank,
+                                                   monkeypatch):
+    """A graphed fit on one NCCL rank (3 epochs of 2 streamed steps,
+    cached, a padded sharded evaluation) queues each epoch after the first
+    without a host synchronisation (torch's sync debug mode raises on
+    one, from the end of the first epoch) until the epoch's one wait
+    (graphs.wait, where the check ends)."""
+    from tpu_breath_torch import graphs
+    from tpu_breath_torch.config import TrainCfg
+    from tpu_breath_torch.models import registry
+    from tpu_breath_torch.train import loop
+
+    _, f, s, y = _fit_data(clips)
+    waits, lines = [], []
+    wait = graphs.wait
+
+    def final_wait(device):
+        torch.cuda.set_sync_debug_mode("default")
+        waits.append(len(lines))
+        wait(device)
+
+    def log_fn(msg):  # an epoch ends: check the next one
+        lines.append(msg)
+        torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(graphs, "wait", final_wait)
+    cfg = TrainCfg(num_epochs=3, batch_size=8, eval_batch_size=8,
+                   warmup_epochs=1, patience=9)
+    try:
+        loop.fit(registry.build("cnn8", 36, seed=3), (f, s), (f[:10], s[:10]),
+                 y, y[:10], cfg, log_fn=log_fn, mesh=nccl_rank)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert waits == [0, 1, 2] and len(lines) == 3
+
+
+def test_mesh_precompute_waits_on_the_host_once(clips, nccl_rank,
+                                                monkeypatch):
+    """extract_features_batched on one NCCL rank (19 clips in chunks of 8,
+    _extract_sharded: the last super-chunk padded) queues its replays,
+    gathers and copies without a host synchronisation until its one wait,
+    and returns the single process's arrays bit for bit."""
+    from tpu_breath_torch import graphs
+    from tpu_breath_torch.features import extract_features_batched
+
+    g = torch.Generator(device="cuda").manual_seed(19)
+    wavs = torch.cat([clips[:5], 0.05 * torch.randn(14, 16000, generator=g,
+                                                    device="cuda")]
+                     ).cpu().numpy()
+    one = extract_features_batched(wavs, chunk=8, device="cuda")
+    extract_features_batched(wavs, chunk=8, mesh=nccl_rank)  # warm
+    waits = []
+    wait = graphs.wait
+
+    def final_wait(device):
+        torch.cuda.set_sync_debug_mode("default")
+        waits.append(device)
+        wait(device)
+
+    monkeypatch.setattr(graphs, "wait", final_wait)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = extract_features_batched(wavs, chunk=8, mesh=nccl_rank)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(waits) == 1
+    for a, b in zip(one, got):
+        assert np.array_equal(a, b, equal_nan=True)

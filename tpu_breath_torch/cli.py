@@ -27,9 +27,11 @@ test still come from the cache. --profile DIR writes feature_stages.json
 --mesh runs data parallel over the ranks a launcher started (torchrun, or
 RANK / WORLD_SIZE / LOCAL_RANK / MASTER_ADDR / MASTER_PORT set by hand; one
 process a rank, parallel/mesh.py): precompute shares each super-chunk of
-chunk clips a rank, train streams each rank's shard of the train split.
-Rank 0 alone writes the cache, the npz files, history.jsonl, the
-checkpoints and the submission.
+chunk clips a rank, train streams each rank's shard of the train split and
+shards each evaluation batch over the ranks. On NCCL (one rank a card) the
+chunks, the steps and the evaluation batches replay CUDA graphs; on gloo
+they run eagerly. Rank 0 alone writes the cache, the npz files,
+history.jsonl, the checkpoints and the submission.
 """
 from __future__ import annotations
 

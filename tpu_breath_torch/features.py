@@ -13,7 +13,8 @@ extract_features runs the graph eagerly, op by op: it is the reference.
 extract_features_compiled is the JAX package's _extract_jit: on the card
 one captured CUDA graph per (device, shape, spec, fused_gt), replayed
 (graphs.py); extract_features_batched queues those replays chunk by chunk
-and waits on the host once.
+and waits on the host once, and under an NCCL mesh so does
+_extract_sharded, the ranks' rows gathered on the device.
 """
 from __future__ import annotations
 
@@ -185,9 +186,9 @@ def extract_features_batched(wavs: np.ndarray,
     extract_features_compiled's graph: its wavs go up from pinned memory,
     its outputs down into pinned buffers, all queued on the current stream,
     and the host waits once, at the end. Under a data-parallel mesh
-    (parallel/mesh.py) the ranks share the chunks (_extract_sharded,
-    eager) and every rank returns the whole arrays. fused_gt as
-    extract_features, read once a call."""
+    (parallel/mesh.py) the ranks share the chunks (_extract_sharded: on
+    NCCL queued the same way, with one wait) and every rank returns the
+    whole arrays. fused_gt as extract_features, read once a call."""
     if mesh is not None:
         return _extract_sharded(wavs, spec, chunk, mesh, fused_gt)
     device = resolve_device(device)
@@ -220,26 +221,59 @@ def _extract_sharded(wavs: np.ndarray, spec: FeatureSpec, chunk: int,
     """Data-parallel extraction (tpu_breath/features.py::_extract_sharded):
     every rank holds all the wavs; a super-chunk is mesh.world * chunk
     clips (the last one padded with silence, so the geometry stays fixed),
-    rank r extracts its rows [r chunk, (r + 1) chunk) on its device, and
-    the ranks' rows are all-gathered, so every rank returns the whole
-    arrays (JAX's process_allgather)."""
+    rank r extracts its rows [r chunk, (r + 1) chunk) through
+    extract_features_compiled on its device (a replay of the chunk graph
+    on the card), and the ranks' rows are all-gathered, so every rank
+    returns the whole arrays (JAX's process_allgather).
+
+    On an NCCL mesh the rows are gathered into device buffers and copied
+    down into pinned host arrays, every super-chunk queued on the current
+    stream, and the host waits once, at the end (as
+    extract_features_batched does; inside graphs.eager() the chunks run
+    eagerly in the same queue). On a gloo mesh, whose collectives take
+    host tensors here, the rank's rows come down with one host wait a
+    super-chunk and are gathered on the host."""
     from tpu_breath_torch.parallel import mesh as mesh_lib
 
+    if fused_gt is None:
+        fused_gt = gt_switch()
     n = wavs.shape[0]
-    feats_out = np.empty((n, spec.n_channels, spec.n_mels, spec.t_fixed),
-                         np.float32)
-    scal_out = np.empty((n, spec.n_scalars), np.float32)
+    device = mesh.device
+    cuda = device.type == "cuda"
+    queued = mesh.backend == "nccl"
     super_chunk = chunk * mesh.world
-    for lo in range(0, n, super_chunk):
-        hi = min(lo + super_chunk, n)
-        mine = np.zeros((chunk, wavs.shape[1]), np.float32)
+    n_pad = -(-n // super_chunk) * super_chunk
+    y = torch.zeros((n_pad // mesh.world, wavs.shape[1]), dtype=torch.float32,
+                    pin_memory=cuda)  # this rank's rows, super-chunk by one
+    for k, lo in enumerate(range(0, n, super_chunk)):
         part = wavs[lo + mesh.rank * chunk:min(lo + (mesh.rank + 1) * chunk,
-                                               hi)]
-        mine[:len(part)] = part
-        f, s = extract_features(torch.from_numpy(mine).to(mesh.device), spec,
-                                fused_gt)
-        feats_out[lo:hi] = mesh_lib.all_gather_rows(mesh, f).cpu().numpy()[
-            :hi - lo]
-        scal_out[lo:hi] = mesh_lib.all_gather_rows(mesh, s).cpu().numpy()[
-            :hi - lo]
-    return feats_out, scal_out
+                                               n)]
+        y[k * chunk:k * chunk + len(part)] = torch.from_numpy(
+            np.asarray(part, np.float32))
+    shapes = ((spec.n_channels, spec.n_mels, spec.t_fixed), (spec.n_scalars,))
+    host = [torch.empty((n_pad,) + sh, dtype=torch.float32, pin_memory=cuda)
+            for sh in shapes]
+    # the gathers' device buffers (NCCL), reused in stream order; or the
+    # rank's rows on the host (gloo)
+    gathered = [torch.empty((super_chunk,) + sh, dtype=torch.float32,
+                            device=device) for sh in shapes] if queued else ()
+    mine = () if queued else [torch.empty((chunk,) + sh, dtype=torch.float32,
+                                          pin_memory=cuda) for sh in shapes]
+    for k, lo in enumerate(range(0, n_pad, super_chunk)):
+        x = y[k * chunk:(k + 1) * chunk]
+        out = extract_features_compiled(
+            x.to(device, non_blocking=True) if cuda else x, spec, fused_gt)
+        if queued:
+            for o, g, h in zip(out, gathered, host):
+                h[lo:lo + super_chunk].copy_(
+                    mesh_lib.all_gather_into(mesh, g, o), non_blocking=True)
+            continue
+        for o, t in zip(out, mine):
+            t.copy_(o, non_blocking=cuda)
+        if cuda:
+            graphs.wait(device)  # the super-chunk's one wait
+        for t, h in zip(mine, host):
+            h[lo:lo + super_chunk] = mesh_lib.all_gather_rows(mesh, t)
+    if queued:
+        graphs.wait(device)
+    return host[0].numpy()[:n], host[1].numpy()[:n]

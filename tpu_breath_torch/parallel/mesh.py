@@ -15,6 +15,15 @@ CPU when the caller asks for it. The backend is NCCL when every local rank
 has a card of its own, and gloo for CPU ranks and for ranks that share a
 card (NCCL refuses two ranks on one card in a communicator); the mesh line
 names the choice.
+
+The backend decides how a mesh's programs run (replays). NCCL's
+collectives can be captured into a CUDA graph, so on an NCCL mesh fit's
+streamed step and an evaluation batch replay as graphs, collectives
+included, and precompute queues its chunk replays and gathers with one
+host wait. Gloo's cannot (a CUDA tensor goes through a host copy), so a
+gloo mesh runs the same programs eagerly. Collectives outside the graphs
+(describe, barrier, broadcast_object, the epoch means) are issued between
+replays, in one order on every rank.
 """
 from __future__ import annotations
 
@@ -23,6 +32,8 @@ import os
 
 import torch
 import torch.distributed as dist
+
+from tpu_breath_torch import graphs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +110,13 @@ def describe(mesh: Mesh) -> str:
             f"devices {devices}")
 
 
+def replays(mesh: Mesh) -> bool:
+    """Whether this mesh's programs replay as CUDA graphs: the backend is
+    NCCL (a gloo collective cannot be captured), the device is a card and
+    the call is outside graphs.eager()."""
+    return mesh.backend == "nccl" and graphs.replays(mesh.device)
+
+
 def is_primary(mesh: Mesh | None) -> bool:
     """Whether this process writes the run's files: rank 0, or the only
     process."""
@@ -133,10 +151,23 @@ def all_reduce_mean_(mesh: Mesh, tensors: list[torch.Tensor]) -> None:
         flat.split([t.numel() for t in tensors]), tensors)])
 
 
+def all_gather_into(mesh: Mesh, out: torch.Tensor, t: torch.Tensor
+                    ) -> torch.Tensor:
+    """out <- the ranks' t concatenated along dim 0, rank 0's rows first,
+    out [world * t.shape[0], ...] given; on an NCCL mesh (one collective
+    on the current stream, no host wait, capturable)."""
+    dist.all_gather_into_tensor(out, t.contiguous(), group=mesh.group)
+    return out
+
+
 def all_gather_rows(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     """The ranks' tensors of one shape concatenated along dim 0, rank 0's
-    rows first (the global batch from the local ones). On a gloo mesh a
-    CUDA tensor is gathered through a host copy."""
+    rows first (the global batch from the local ones). On an NCCL mesh one
+    gather into a new tensor (all_gather_into); on a gloo mesh a CUDA
+    tensor is gathered through a host copy."""
+    if mesh.backend == "nccl":
+        return all_gather_into(mesh, t.new_empty(
+            (mesh.world * t.shape[0],) + tuple(t.shape[1:])), t)
     src = t.cpu() if _staged(mesh, t) else t.contiguous()
     parts = [torch.empty_like(src) for _ in range(mesh.world)]
     dist.all_gather(parts, src, group=mesh.group)

@@ -32,10 +32,15 @@ batches in rank order): global BatchNorm statistics and dropout masks
 (models/layers.py), augmentation drawn for the global batch with partner
 rows gathered from every rank, and gradients averaged over the ranks by one
 all-reduce of their concatenation before clipping. Train loss and accuracy
-are reduced over the ranks once an epoch; validation is replicated, rank
-0's metrics decide early stopping on every rank, and rank 0 writes the
-checkpoints. The mesh path's steps run eagerly: its collectives go through
-gloo when ranks share a card, and gloo's cannot be captured.
+are reduced over the ranks once an epoch. Validation is sharded as the
+JAX package's make_eval_step(model, mesh) shards it: each padded eval batch
+split over the ranks in rank order and the logits all-gathered, so every
+rank holds them all; rank 0's metrics decide early stopping on every rank,
+and rank 0 writes the checkpoints. On an NCCL mesh (one rank a card) the
+streamed step and an evaluation batch are each one CUDA graph, collectives
+included (parallel/mesh.replays); on a gloo mesh (CPU ranks, ranks sharing
+a card), whose collectives cannot be captured, the same programs run
+eagerly.
 """
 from __future__ import annotations
 
@@ -230,23 +235,35 @@ class Predictor:
     in batches of batch_size, the tail padded with its last row and the
     padding's logits dropped, so every batch has one shape.
 
-    On the card each batch is one replay of a CUDA graph of the gather and
-    the forward (one graph per global flags, graphs.global_flags, captured
-    at its first use and kept while the Predictor lives); the logits are
-    gathered on the device and copied into a pinned host tensor, readable
-    after one graphs.wait. The model's parameters and statistics change in
-    place (AdamW, load_state_dict), so one graph serves a whole fit. On the
-    CPU, or inside graphs.eager(), the same program runs eagerly."""
+    Under a mesh (make_eval_step(model, mesh)) a batch is split over the
+    ranks in rank order, padded further with its last row to a multiple of
+    the world; each rank runs the forward on its rows and the logits are
+    all-gathered, so every rank returns them all.
+
+    On the card (under a mesh: an NCCL mesh, mesh_lib.replays) each batch
+    is one replay of a CUDA graph of the gather, the forward and the
+    logits' all-gather (one graph per global flags, graphs.global_flags,
+    captured at its first use and kept while the Predictor lives); the
+    logits are gathered on the device and copied into a pinned host
+    tensor, readable after one graphs.wait. The
+    model's parameters and statistics change in place (AdamW,
+    load_state_dict), so one graph serves a whole fit. On the CPU, on a
+    gloo mesh, or inside graphs.eager(), the same program runs eagerly."""
 
     def __init__(self, model: nn.Module, feats: torch.Tensor,
-                 scals: torch.Tensor, batch_size: int):
+                 scals: torch.Tensor, batch_size: int,
+                 mesh: mesh_lib.Mesh | None = None):
         self.model, self.feats, self.scals = model, feats, scals
-        self.batch_size = batch_size
+        self.batch_size, self.mesh = batch_size, mesh
         self.graphs: dict = {}
 
     def forward(self, rows: torch.Tensor) -> torch.Tensor:
-        """The program: logits [batch_size] of rows (int64 on the device)."""
-        return self.model(self.feats[rows], self.scals[rows]).float()
+        """The program: logits of rows (int64 on the device; under a mesh
+        this rank's rows of a batch, the logits the whole batch's)."""
+        logits = self.model(self.feats[rows], self.scals[rows]).float()
+        if self.mesh is None:
+            return logits
+        return mesh_lib.all_gather_rows(self.mesh, logits)
 
     @torch.no_grad()
     def __call__(self, n: int | None = None) -> torch.Tensor:
@@ -258,21 +275,31 @@ class Predictor:
         self.model.eval()
         b = self.batch_size
         n_pad = -(-n // b) * b
-        rows = torch.arange(n_pad, device=device).clamp_(max=max(n - 1, 0))
+        rank, world = ((0, 1) if self.mesh is None
+                       else (self.mesh.rank, self.mesh.world))
+        per = -(-b // world)  # a rank's rows of a batch
+        # rows [k, i]: row i of this rank's share of batch k
+        share = torch.arange(rank * per, (rank + 1) * per, device=device)
+        rows = (torch.arange(0, n_pad, b, device=device)[:, None]
+                + share.clamp_(max=b - 1)).clamp_(max=max(n - 1, 0))
         out = torch.empty(n_pad, dtype=torch.float32, device=device)
         key = graphs.global_flags()
-        for lo in range(0, n_pad, b):
-            r = rows[lo:lo + b]
-            if not graphs.replays(device):
-                out[lo:lo + b] = self.forward(r)
+        for k, lo in enumerate(range(0, n_pad, b)):
+            if not _replays(device, self.mesh):
+                out[lo:lo + b] = self.forward(rows[k])[:b]
                 continue
             graph = self.graphs.get(key)
             if graph is None:
-                graph = self.graphs[key] = graphs.Graph(self.forward, (r,),
-                                                        device)
-            out[lo:lo + b] = graph(r)
+                graph = self.graphs[key] = graphs.Graph(
+                    self.forward, (rows[k],), device)
+            out[lo:lo + b] = graph(rows[k])[:b]
         host = torch.empty(n, dtype=torch.float32, pin_memory=cuda)
         return host.copy_(out[:n], non_blocking=cuda)
+
+
+def _replays(device, mesh: mesh_lib.Mesh | None) -> bool:
+    """Whether a program on device (under mesh) runs as a graph."""
+    return graphs.replays(device) if mesh is None else mesh_lib.replays(mesh)
 
 
 def predict_logits(model: nn.Module, feats: torch.Tensor,
@@ -386,45 +413,59 @@ def fit_step(model: nn.Module, optimizer: AdamW, lr, data: tuple,
 
 class TrainStep:
     """fit's step as one program (the JAX package's jitted make_train_step,
-    tpu_breath/train/loop.py:84-200): step(rows, lr, use_aug) -> (loss,
-    accuracy) device scalars, fit_step on the rows of data, the resident
-    train split (cached: (features, scalars, labels); fused_spec given:
-    (wavs, labels)). rows [batch_size] int64, lr () f32 and use_aug () bool
-    are tensors on data's device; gen is the augmentation's generator.
+    tpu_breath/train/loop.py:84-200, and under a mesh its
+    make_train_step_batched, :128-135): fit_step, its inputs given as
+    tensors on one device. With data, the resident train split (cached:
+    (features, scalars, labels); fused_spec given: (wavs, labels)),
+    step(rows, lr, use_aug) steps on the rows [batch_size] int64 of it.
+    With data None (the streamed input under a mesh), step(*batch, lr,
+    use_aug) steps on the batch itself, this rank's rows of the global
+    batch as loader.Prefetcher hands them over. lr () f32 and use_aug ()
+    bool; gen is the augmentation's generator. Returns (loss, accuracy)
+    device scalars.
 
-    On the card, the first call runs the step eagerly on the capture stream
-    (the run's real first step) and captures it (graphs.Graph, gen
-    registered, a capture advancing no generator); every later call copies
-    its inputs in and replays the whole step with one launch, with no host
-    wait. One graph per global flags (graphs.global_flags), kept while the
+    On the card (under a mesh: an NCCL mesh, mesh_lib.replays), the first
+    call runs the step eagerly on the capture stream (the run's real first
+    step; under a mesh it issues every collective of the step, so the
+    communicator exists before the capture) and captures it (graphs.Graph,
+    gen registered, a capture advancing no generator; in the default
+    capture mode, as the single process's); every later call copies its
+    inputs in on the current stream and replays the whole step,
+    collectives included, with one launch and no host wait. Every rank
+    captures at its first step, so the ranks' collectives keep one order.
+    One graph per global flags (graphs.global_flags), kept while the
     TrainStep lives. The returned scalars are the graph's static outputs:
-    copy them before the next call. On the CPU, or inside graphs.eager(),
-    every call runs the step eagerly."""
+    copy them before the next call. On the CPU, on a gloo mesh, or inside
+    graphs.eager(), every call runs the step eagerly."""
 
-    def __init__(self, model: nn.Module, optimizer: AdamW, data: tuple,
-                 cfg: TrainCfg, gen: torch.Generator,
-                 fused_spec: FeatureSpec | None = None):
+    def __init__(self, model: nn.Module, optimizer: AdamW,
+                 data: tuple | None, cfg: TrainCfg, gen: torch.Generator,
+                 fused_spec: FeatureSpec | None = None,
+                 mesh: mesh_lib.Mesh | None = None):
         self.model, self.optimizer, self.data = model, optimizer, data
         self.cfg, self.gen, self.fused_spec = cfg, gen, fused_spec
+        self.mesh = mesh
         self.graphs: dict = {}
 
-    def body(self, rows: torch.Tensor, lr: torch.Tensor,
-             use_aug: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        return fit_step(self.model, self.optimizer, lr, self.data, rows,
-                        self.cfg, self.gen, use_aug, self.fused_spec)
+    def body(self, *xs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        *x, lr, use_aug = xs
+        data, rows = ((tuple(x), None) if self.data is None
+                      else (self.data, x[0]))
+        return fit_step(self.model, self.optimizer, lr, data, rows, self.cfg,
+                        self.gen, use_aug, self.fused_spec, self.mesh)
 
-    def __call__(self, rows: torch.Tensor, lr: torch.Tensor,
-                 use_aug: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        device = rows.device
-        if not graphs.replays(device):
-            return self.body(rows, lr, use_aug)
+    def __call__(self, *xs: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+        device = xs[0].device
+        if not _replays(device, self.mesh):
+            return self.body(*xs)
         key = graphs.global_flags()
         graph = self.graphs.get(key)
         if graph is None:
             graph = self.graphs[key] = graphs.Graph(
-                self.body, (rows, lr, use_aug), device, generators=(self.gen,))
+                self.body, xs, device, generators=(self.gen,))
             return graph.warm_out
-        return graph(rows, lr, use_aug)
+        return graph(*xs)
 
 
 def _upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -454,15 +495,15 @@ def fit(model: nn.Module, train_store, val_store, train_labels, val_labels,
     mode's.
 
     mesh: data parallelism (the module docstring); every rank passes the
-    whole split and keeps its host shard, and each step runs eagerly
-    (fit_step): ranks sharing a card reduce over gloo, whose collectives a
-    CUDA graph cannot hold. Without a mesh the train split lives on the
-    device, a step gathers its batch by index, and every step is a call of
-    one TrainStep (on the card: the first step eager and captured, every
-    later one a replay); the validation split goes through one Predictor
-    (on the card one replay a padded batch). Both, with their graphs, are
-    released when fit returns. An epoch waits on the host once, at its end,
-    for its loss, accuracy and validation logits.
+    whole split, keeps its host shard and streams its batches. Without a
+    mesh the train split lives on the device and a step gathers its batch
+    by index. Either way every step is a call of one TrainStep (on the
+    card, and under a mesh on NCCL only: the first step eager and
+    captured, every later one a replay; on a gloo mesh every step eager)
+    and the validation split goes through one Predictor (sharded over a
+    mesh; one replay a padded batch where the steps replay). Both, with
+    their graphs, are released when fit returns. An epoch waits on the
+    host once, at its end, for its loss, accuracy and validation logits.
 
     The whole run is inside reproducible(), with no way to leave it: the
     JAX package's contract that a seed fixes the history."""
@@ -483,6 +524,7 @@ def fit(model: nn.Module, train_store, val_store, train_labels, val_labels,
             raise ValueError(f"batch_size ({b}) must be a multiple of the "
                              f"mesh size ({mesh.world})")
         local_batch = b // mesh.world
+        train_tr = None  # streamed: a step's input is its batch
         shard = loader.host_shard(n_train, mesh.rank, mesh.world)
         host = [np.ascontiguousarray(np.asarray(a)[shard], np.float32)
                 for a in (train_store[0], train_labels)]
@@ -533,9 +575,9 @@ def fit(model: nn.Module, train_store, val_store, train_labels, val_labels,
     cuda_devices = [device.index or 0] if cuda else []
     # one augmentation generator, re-seeded in place each epoch
     gen = torch.Generator(device=device)
-    predict = Predictor(model, feats_va, scals_va, cfg.eval_batch_size)
-    run_step = (TrainStep(model, optimizer, train_tr, cfg, gen, fused_spec)
-                if mesh is None else None)
+    predict = Predictor(model, feats_va, scals_va, cfg.eval_batch_size, mesh)
+    run_step = TrainStep(model, optimizer, train_tr, cfg, gen, fused_spec,
+                         mesh)
     gate = {on: torch.full((), on, dtype=torch.bool, device=device)
             for on in (False, True)}
     losses = torch.empty(steps_per_epoch, device=device)
@@ -546,11 +588,8 @@ def fit(model: nn.Module, train_store, val_store, train_labels, val_labels,
                   use_aug: bool) -> None:
         """Step s of an epoch, its loss and accuracy copied into the epoch's
         buffers (a graph's next replay overwrites its outputs)."""
-        if mesh is None:
-            loss, acc = run_step(item, lr, gate[use_aug])
-        else:  # this rank's streamed rows
-            loss, acc = fit_step(model, optimizer, lr, item, None, cfg, gen,
-                                 use_aug, fused_spec, mesh)
+        x = (item,) if mesh is None else item  # rows, or the streamed batch
+        loss, acc = run_step(*x, lr, gate[use_aug])
         losses[s].copy_(loss)
         accs[s].copy_(acc)
 
