@@ -8,7 +8,8 @@ no result line):
   1. environment: torch/CUDA versions, the card's name and power limit;
      fails without a CUDA device;
   2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel,
-     sm_90a) and print the time;
+     sm_90a) and the host's wav decoder (csrc/wavio.cpp, g++), and print
+     the times;
   3. each kernel (A, B, B', B'', C, D) against its plain PyTorch version on
      the card, at the main path's shapes with B = 8 and B = 128 (golden wavs
      + seeded noise, silence, an impulse, quantized plateaus), with times
@@ -56,8 +57,18 @@ no result line):
      wider than one count (tie width <= 1); A, B, B'', C must launch;
   5. serve: seeded CNN8 checkpoint, `predict --from-wav --archs cnn8` through
      cli.main on cuda; kernels A, B, C must launch;
+  decode. the threaded C++ decoder (data/wav.load_wav_batch) against its
+     plain numpy version on seeded wavs of every format it reads (PCM
+     8/16/24/32, IEEE f32/f64, EXTENSIBLE, 1-3 channels, 8,000-48,000 Hz,
+     short and long, a LIST chunk): bit-equal at 16 kHz, within 2e-6 where
+     resampled; the JAX package's error rule on a batch with a file that
+     is not RIFF and a missing path (zeros and both listed, a raise
+     without `errors`); then phase 6's 1,536 clips decoded natively on all
+     cores, on one thread and by the plain loop, 5 runs each in turns,
+     host clock, printed on one [decode] line;
   6. e2e on a seeded synthetic dataset (1,280 labelled clips -> 1,024 train /
-     256 val, 256 test) through cli.main on cuda: precompute with
+     256 val, 256 test; written by the decode phase) through cli.main on
+     cuda: precompute (its decode and feature lines logged) with
      TPU_BREATH_PALLAS_GT=1, train --archs cnn8,vgg --epochs 6 --predict
      (full width, batch 512), train --archs cnn8 --epochs 7 --resume,
      predict from the cache and predict --from-wav; kernels A, B, B'', C
@@ -140,6 +151,7 @@ import io
 import json
 import os
 import socket
+import struct
 import subprocess
 import sys
 import tempfile
@@ -195,6 +207,7 @@ def phase_env() -> dict:
 
 
 def phase_build() -> None:
+    from tpu_breath_torch.data import wav as wav_io
     from tpu_breath_torch.ops.cuda import _build
 
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
@@ -207,6 +220,13 @@ def phase_build() -> None:
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[build] {line.strip()}")
+    info = wav_io.build()
+    wav_io._native_lib()
+    cxx = subprocess.run([wav_io.compiler(), "--version"],
+                         capture_output=True, text=True,
+                         check=True).stdout.splitlines()[0]
+    log(f"[build] wav decoder: {cxx}; {os.path.relpath(info['path'], ROOT)} "
+        f"in {info['seconds']:.2f} s")
 
 
 def bounds(x: dict, rounds: int) -> dict:
@@ -1156,6 +1176,144 @@ def phase_serve(tmp: str) -> dict:
     return {"launches": launches, "ckpt": ckpt, "wavs": wavs}
 
 
+@dataclasses.dataclass(frozen=True)
+class WavCase:
+    """A seeded wav of the decode phase: rate, channels, format code (1 PCM,
+    3 IEEE float), bits, frames, a WAVE_FORMAT_EXTENSIBLE fmt chunk, a
+    LIST chunk of odd size before the data."""
+    rate: int
+    channels: int
+    fmt: int
+    bits: int
+    frames: int
+    extensible: bool = False
+    list_chunk: bool = False
+
+
+DECODE_CASES = {
+    "pcm8": WavCase(16000, 1, 1, 8, 16000),
+    "pcm16_short": WavCase(16000, 1, 1, 16, 4000),
+    "pcm16_long_list": WavCase(16000, 1, 1, 16, 24000, list_chunk=True),
+    "pcm24_stereo": WavCase(16000, 2, 1, 24, 16000),
+    "pcm32_3ch": WavCase(16000, 3, 1, 32, 16000),
+    "f32_stereo": WavCase(16000, 2, 3, 32, 16000),
+    "f64": WavCase(16000, 1, 3, 64, 16000),
+    "ext_pcm16_stereo": WavCase(16000, 2, 1, 16, 16000, extensible=True),
+    "pcm16_8k": WavCase(8000, 1, 1, 16, 8000),
+    "f64_8k_long": WavCase(8000, 1, 3, 64, 12000),
+    "pcm16_22k_stereo": WavCase(22050, 2, 1, 16, 22050),
+    "f32_44k_list": WavCase(44100, 1, 3, 32, 44100, list_chunk=True),
+    "ext_f32_44k_stereo": WavCase(44100, 2, 3, 32, 44100, extensible=True),
+    "pcm24_48k_3ch": WavCase(48000, 3, 1, 24, 48000),
+    "pcm16_48k_short": WavCase(48000, 1, 1, 16, 12000),
+}
+
+
+def write_case(path: str, case: WavCase, seed: int) -> None:
+    """Seeded noise in [-0.9, 0.9] as a RIFF/WAVE file of this case."""
+    x = np.random.default_rng(seed).uniform(-0.9, 0.9,
+                                            (case.frames, case.channels))
+    if case.fmt == 3:
+        raw = x.astype("<f4" if case.bits == 32 else "<f8").tobytes()
+    elif case.bits == 8:  # unsigned
+        raw = (np.round(x * 127) + 128).astype(np.uint8).tobytes()
+    elif case.bits == 24:
+        v = np.round(x * (2 ** 23 - 1)).astype("<i4")
+        raw = v.view(np.uint8).reshape(-1, 4)[:, :3].tobytes()
+    else:
+        raw = np.round(x * (2.0 ** (case.bits - 1) - 1)).astype(
+            f"<i{case.bits // 8}").tobytes()
+    block = case.channels * case.bits // 8
+    fmt = struct.pack("<HHIIHH", 0xFFFE if case.extensible else case.fmt,
+                      case.channels, case.rate, case.rate * block, block,
+                      case.bits)
+    if case.extensible:  # cbSize, valid bits, channel mask, SubFormat GUID
+        fmt += struct.pack("<HHIH", 22, case.bits, 0, case.fmt) + (
+            b"\x00\x00\x00\x00\x10\x00\x80\x00\x00\xaa\x00\x38\x9b\x71")
+    body = b"WAVE" + b"fmt " + struct.pack("<I", len(fmt)) + fmt
+    if case.list_chunk:
+        info = b"INFOICMT" + struct.pack("<I", 5) + b"hello"
+        body += b"LIST" + struct.pack("<I", len(info)) + info + b"\x00"
+    body += b"data" + struct.pack("<I", len(raw)) + raw
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", len(body)) + body)
+
+
+def write_decode_set(d: str) -> tuple[dict, list[str]]:
+    """DECODE_CASES written under d, seeded by their order: ({name: path},
+    [a file that is not RIFF, a missing path])."""
+    good = {}
+    for i, (name, case) in enumerate(DECODE_CASES.items()):
+        good[name] = os.path.join(d, f"{name}.wav")
+        write_case(good[name], case, seed=100 + i)
+    bad = [os.path.join(d, "not_riff.wav"), os.path.join(d, "missing.wav")]
+    with open(bad[0], "wb") as f:
+        f.write(b"RIFX\x00\x00\x00\x00not a wave file")
+    return good, bad
+
+
+def phase_decode(tmp: str, smi: str) -> list[str]:
+    """The native decoder against its plain version and the JAX package's
+    error rule, then the decode of phase 6's dataset (written here) timed
+    three ways. Returns the dataset's test wav paths."""
+    from tpu_breath_torch.config import Paths
+    from tpu_breath_torch.data import dataset as ds
+    from tpu_breath_torch.data import wav as wav_io
+
+    d = os.path.join(tmp, "decode")
+    os.makedirs(d)
+    good, bad = write_decode_set(d)
+    native = wav_io.load_wav_batch(list(good.values()))
+    worst = 0.0
+    for (name, case), got in zip(DECODE_CASES.items(), native):
+        want = wav_io.load_wav(good[name])
+        if case.rate == SR and not np.array_equal(got, want):
+            raise AssertionError(f"{name}: native != plain at 16 kHz")
+        err = float(np.max(np.abs(got - want)))
+        worst = max(worst, err)
+        if err > 2e-6:  # tests/test_wav_edge_cases.py's bound
+            raise AssertionError(f"{name}: native vs plain {err:.3g} > 2e-6")
+    batch = [good["pcm16_short"], bad[0], good["pcm24_48k_3ch"], bad[1]]
+    errors: list = []
+    got = wav_io.load_wav_batch(batch, errors=errors)
+    want = np.stack([wav_io.load_wav(batch[0]), np.zeros(SR, np.float32),
+                     wav_io.load_wav(batch[2]), np.zeros(SR, np.float32)])
+    if not np.array_equal(got, want) or [p for p, _ in errors] != bad:
+        raise AssertionError(f"error rule: {errors}")
+    try:
+        wav_io.load_wav_batch(batch)
+    except ValueError as e:
+        raised = str(e)
+    else:
+        raise AssertionError("a batch with a bad file decoded without errors")
+    log(f"[decode] {len(good)} formats: bit-equal to the plain version at "
+        f"16 kHz, resampled max abs {worst:.3g} (bound 2e-6); error rule: "
+        f"zeros, {len(errors)} listed, without errors= raised {raised!r}")
+
+    root = os.path.join(tmp, "input")
+    test_paths = make_dataset(root)
+    clips = ds.dataset_wavs(Paths(root))[1]
+    ways = {"native, all cores": lambda: wav_io.load_wav_batch(clips),
+            "native, 1 thread": lambda: wav_io.load_wav_batch(clips,
+                                                              n_threads=1),
+            "plain": lambda: np.stack([wav_io.load_wav(p) for p in clips])}
+    secs = {k: [] for k in ways}
+    outs = {}
+    for _ in range(5):
+        for k, fn in ways.items():
+            t0 = time.perf_counter()
+            outs[k] = fn()
+            secs[k].append(time.perf_counter() - t0)
+    if not all(np.array_equal(o, outs["plain"]) for o in outs.values()):
+        raise AssertionError("the dataset's clips decode otherwise")
+    log(f"[decode] {len(clips)} clips (mono PCM16, 16 kHz), host clock, "
+        f"median (min-max) of 5 runs in turns, s: " + "; ".join(
+            f"{k} {np.median(v):.4f} ({min(v):.4f}-{max(v):.4f})"
+            for k, v in secs.items())
+        + f"; os.cpu_count() {os.cpu_count()}; {smi}")
+    return test_paths
+
+
 def reset_launches() -> None:
     add_launches({k: -n for k, n in read_launches().items()})
 
@@ -1229,25 +1387,27 @@ def read_submission(path: str, n: int) -> list[list[str]]:
     return rows[1:]
 
 
-def phase_e2e(tmp: str) -> dict:
+def phase_e2e(tmp: str, test_paths: list[str]) -> dict:
     """precompute (B'') -> train cnn8,vgg -> resume -> predict (cache and
     --from-wav) through cli.main on cuda, at full width and the configs'
-    batch 512."""
+    batch 512, on the dataset phase_decode wrote under tmp/input."""
     from tpu_breath_torch import cli, ensemble
     from tpu_breath_torch.config import Paths
     from tpu_breath_torch.data import dataset as ds
     from tpu_breath_torch.train import checkpoint as ckpt_lib
 
     root, out_root = os.path.join(tmp, "input"), os.path.join(tmp, "e2e")
-    test_paths = make_dataset(root)
     common = ["--root", root, "--out-root", out_root, "--device", "cuda"]
     res = {}
     reset_launches()
     with gt_switch():
         out, dt = run_cli(["precompute", *common])
     res["precompute_s"] = dt
-    res["precompute_line"] = next(l for l in out.splitlines()
-                                  if l.startswith("features:"))
+    res["decode_line"], res["precompute_line"] = (
+        next(l for l in out.splitlines() if l.startswith(w))
+        for w in ("decoded in", "features:"))
+    log(f"[e2e] precompute: {res['decode_line']}; {res['precompute_line']}; "
+        f"whole command {dt:.2f} s")
     after_pre = read_launches()
     if after_pre["B''"] <= 0 or after_pre["B"] != 0:
         raise AssertionError(f"precompute with TPU_BREATH_PALLAS_GT=1 did "
@@ -2555,7 +2715,8 @@ def phase_times(serve: dict, e2e: dict, fused: dict, steps: dict) -> None:
             f"steps + val of 256) median {np.median(secs):.3f} s cached, "
             f"{np.median(fsecs):.3f} s fused (B''), epochs 2-6")
     log(f"[time] precompute, 1,536 clips (TPU_BREATH_PALLAS_GT=1): "
-        f"{e2e['precompute_line']}; whole command {e2e['precompute_s']:.2f} "
+        f"{e2e['decode_line']}; {e2e['precompute_line']}; whole command "
+        f"{e2e['precompute_s']:.2f} "
         f"s with decode; train cnn8,vgg 6 epochs + predict "
         f"{e2e['train_s']:.2f} s")
 
@@ -2587,7 +2748,7 @@ def main(argv: list[str] | None = None) -> int:
     parity = phase_parity(env["smi"])
     with tempfile.TemporaryDirectory() as tmp:
         serve = phase_serve(tmp)
-        e2e = phase_e2e(tmp)
+        e2e = phase_e2e(tmp, phase_decode(tmp, env["smi"]))
         repro = phase_repro(tmp, e2e)
         scope_cost(env["smi"])
         fused = phase_fused(tmp)

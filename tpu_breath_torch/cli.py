@@ -78,7 +78,7 @@ def _build_feature_store(paths: Paths, spec: FeatureSpec, device,
     wavs = wav_io.load_wav_batch(wav_paths, spec.expected_len, errors=errors)
     for path, msg in errors:
         print(f"error: {path}: {msg}")
-    print(f"decoded in {time.time() - t0:.1f}s ({len(wav_paths) - len(errors)}"
+    print(f"decoded in {time.time() - t0:.2f}s ({len(wav_paths) - len(errors)}"
           f" ok, {len(errors)} failed)")
     t0 = time.time()
     feats, scals = extract_features_batched(wavs, spec, chunk=chunk,

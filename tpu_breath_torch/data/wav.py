@@ -3,24 +3,106 @@
 Decodes clips into one [N, 16000] float32 array: any input rate is
 resampled to 16 kHz (Kaiser-windowed-sinc polyphase), multi-channel audio is
 downmixed by channel mean, PCM8/16/24/32 and IEEE-float samples convert to
-float32. Only the numpy decoder is ported: the JAX package's optional C++
-decoder (native/libwavio.so) gives the same samples.
+float32. `load_wav_batch` decodes through the port's threaded C++ decoder
+(csrc/wavio.cpp), which this module builds with the host's C++ compiler at
+first use into tpu_breath_torch/_build/ and loads with ctypes; there is no
+numpy fallback. The numpy `read_wav` / `load_wav` / `resample_poly` are its
+plain version: the two agree bit for bit on clips at 16 kHz and within
+2e-6 where a clip is resampled (the order of the filter's sum differs).
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+import hashlib
 import math
+import os
+import shutil
 import struct
+import subprocess
+import threading
+import time
 
 import numpy as np
 
 TARGET_SR = 16_000
 
-# Kaiser-windowed-sinc polyphase design, the JAX package's (and its C++
-# decoder's, native/wavio.cpp): beta 8.6 (~90 dB stopband), 16 zero-crossings
+# Kaiser-windowed-sinc polyphase design, the JAX package's and the C++
+# decoder's (csrc/wavio.cpp): beta 8.6 (~90 dB stopband), 16 zero-crossings
 # per side at the narrower Nyquist. librosa's soxr_hq differs at the
 # 1e-4-of-peak level; the downstream channel effect is bounded in PARITY.md.
 _KAISER_BETA = 8.6
 _ZERO_CROSSINGS = 16
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WAVIO_SRC = os.path.join(_PKG, "csrc", "wavio.cpp")
+BUILD_DIR = os.path.join(_PKG, "_build")
+# the JAX package's native/Makefile flags: no -march=native or -ffast-math,
+# so no multiply-add is contracted and the samples stay those of its build
+CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-Wextra"]
+LD_FLAGS = ["-shared", "-lpthread"]
+
+
+def compiler() -> str | None:
+    """The host's C++ compiler: g++, else c++ (None if neither is found)."""
+    return shutil.which("g++") or shutil.which("c++")
+
+
+def library_path() -> str:
+    """The decoder's library for this source and these flags (the file
+    name carries their hash, so an edited source is rebuilt)."""
+    h = hashlib.sha256()
+    with open(WAVIO_SRC, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(CXX_FLAGS + LD_FLAGS).encode())
+    return os.path.join(BUILD_DIR,
+                        f"libtpu_breath_wavio_{h.hexdigest()[:16]}.so")
+
+
+def build() -> dict:
+    """Compile csrc/wavio.cpp if its library is missing. Returns {"path",
+    "seconds"} (0.0 when the library was there). Raises RuntimeError
+    without a compiler or when the build fails."""
+    out = library_path()
+    if os.path.exists(out):
+        return {"path": out, "seconds": 0.0}
+    cxx = compiler()
+    if cxx is None:
+        raise RuntimeError(f"no C++ compiler (g++ or c++ on PATH) to build "
+                           f"the wav decoder {WAVIO_SRC}")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    # processes (test workers, ranks) and threads may build at once: each
+    # writes its own file and renames it into place
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run([cxx, *CXX_FLAGS, WAVIO_SRC, *LD_FLAGS, "-o",
+                              tmp], capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"{cxx} failed ({res.returncode}) to build "
+                               f"the wav decoder {WAVIO_SRC}:\n{res.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return {"path": out, "seconds": time.perf_counter() - t0}
+
+
+@functools.lru_cache(maxsize=None)
+def _native_lib() -> ctypes.CDLL:
+    """The loaded decoder (built on first call)."""
+    path = build()["path"]
+    try:
+        lib = ctypes.CDLL(path)
+    except OSError as e:
+        raise RuntimeError(f"cannot load the wav decoder {path} (built by "
+                           f"{compiler()} from {WAVIO_SRC}): {e}") from e
+    lib.decode_wav_batch.restype = ctypes.c_int
+    lib.decode_wav_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
+    ]
+    return lib
 
 
 def _resample_filter(up: int, down: int) -> np.ndarray:
@@ -139,18 +221,31 @@ def load_wav(path: str, expected_len: int = 16_000) -> np.ndarray:
 
 
 def load_wav_batch(paths: list[str], expected_len: int = 16_000,
+                   n_threads: int = 0,
                    errors: list | None = None) -> np.ndarray:
-    """[N, expected_len] float32 at 16 kHz.
+    """[N, expected_len] float32 at 16 kHz, decoded by the native decoder
+    on `n_threads` threads (0: the hardware's concurrency).
 
-    Per-file failure accounting mirrors the reference's precompute tally
-    (src/precompute/process.py:107-108, core.py:36-45): a failed clip decodes
-    to zeros and, when `errors` is given, (path, message) is appended to it
-    instead of raising."""
+    The JAX package's error rule (tpu_breath/data/wav.py), not a fallback:
+    if any file fails, the whole batch goes through the numpy pass, where a
+    failed clip decodes to zeros and, when `errors` is given, (path,
+    message) is appended to it instead of raising, as the reference's
+    precompute tally does (src/precompute/process.py:107-108,
+    core.py:36-45)."""
+    lib = _native_lib()
     out = np.zeros((len(paths), expected_len), dtype=np.float32)
+    c_paths = (ctypes.c_char_p * len(paths))(*map(os.fsencode, paths))
+    failed = lib.decode_wav_batch(
+        c_paths, len(paths),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), expected_len,
+        n_threads)
+    if failed == 0:
+        return out
     for i, p in enumerate(paths):
         try:
             out[i] = load_wav(p, expected_len)
         except Exception as e:
+            out[i] = 0.0
             if errors is None:
                 raise
             errors.append((p, str(e)))
