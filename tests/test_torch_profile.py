@@ -82,6 +82,8 @@ def test_train_profile_trace_and_ops(runs):
     names = {e.get("name") for e in events}
     # the step spans fit names for the trace's reader
     assert "train_step" in names and "aten::convolution" in names
+    # and its epochs' spans, the epoch's wait among them
+    assert "fit.epoch" in names and "fit.wait" in names
     table = (runs / "train" / "ops.txt").read_text()
     assert "Self CPU" in table and "aten::" in table
 

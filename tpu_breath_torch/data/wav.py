@@ -25,6 +25,8 @@ import time
 
 import numpy as np
 
+from tpu_breath_torch.utils import profiling
+
 TARGET_SR = 16_000
 
 # Kaiser-windowed-sinc polyphase design, the JAX package's and the C++
@@ -231,22 +233,27 @@ def load_wav_batch(paths: list[str], expected_len: int = 16_000,
     failed clip decodes to zeros and, when `errors` is given, (path,
     message) is appended to it instead of raising, as the reference's
     precompute tally does (src/precompute/process.py:107-108,
-    core.py:36-45)."""
+    core.py:36-45).
+
+    Spans (utils/profiling.py): wav.decode (the native call, attr files)
+    and wav.fallback (the numpy pass)."""
     lib = _native_lib()
     out = np.zeros((len(paths), expected_len), dtype=np.float32)
     c_paths = (ctypes.c_char_p * len(paths))(*map(os.fsencode, paths))
-    failed = lib.decode_wav_batch(
-        c_paths, len(paths),
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), expected_len,
-        n_threads)
+    with profiling.span("wav.decode", files=len(paths)):
+        failed = lib.decode_wav_batch(
+            c_paths, len(paths),
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), expected_len,
+            n_threads)
     if failed == 0:
         return out
-    for i, p in enumerate(paths):
-        try:
-            out[i] = load_wav(p, expected_len)
-        except Exception as e:
-            out[i] = 0.0
-            if errors is None:
-                raise
-            errors.append((p, str(e)))
+    with profiling.span("wav.fallback"):
+        for i, p in enumerate(paths):
+            try:
+                out[i] = load_wav(p, expected_len)
+            except Exception as e:
+                out[i] = 0.0
+                if errors is None:
+                    raise
+                errors.append((p, str(e)))
     return out

@@ -16,6 +16,7 @@ from tpu_breath_torch.features import extract_features, gt_switch
 from tpu_breath_torch.models import registry
 from tpu_breath_torch.train import checkpoint as ckpt_lib
 from tpu_breath_torch.train.loop import predict_logits
+from tpu_breath_torch.utils import profiling
 
 
 def softmax_weights(val_scores, use_softmax: bool = True) -> np.ndarray:
@@ -100,7 +101,13 @@ class Server:
     memory, probabilities down into a pinned buffer) and the host waits
     once, at the end. On the CPU (or inside graphs.eager()) the same
     program runs eagerly.
-    fused_gt follows TPU_BREATH_PALLAS_GT, read once a call."""
+    fused_gt follows TPU_BREATH_PALLAS_GT, read once a call.
+
+    Spans (utils/profiling.py): a call is server.call (attrs clips,
+    micro_batches), its parts server.stage (the pinned buffers, the clips
+    copied in), server.issue (each micro-batch's copy in, replay and copy
+    out, queued), server.wait (the host's one wait) and server.unstage
+    (the probabilities as float64)."""
 
     def __init__(self, models, weights, spec=None, device="cuda"):
         self.models = list(models)
@@ -122,28 +129,37 @@ class Server:
         outputs dropped."""
         n = wavs.shape[0]
         n_pad = -(-n // micro_batch) * micro_batch
-        cuda = self.device.type == "cuda"
-        graphed = graphs.replays(self.device)
-        y = torch.zeros((n_pad, wavs.shape[1]), dtype=torch.float32,
-                        pin_memory=cuda)
-        y[:n] = torch.from_numpy(np.asarray(wavs, np.float32))
-        out = torch.empty(n_pad, dtype=torch.float32, pin_memory=cuda)
-        fused_gt = gt_switch()
-        key = (micro_batch, fused_gt, graphs.global_flags())
-        for lo in range(0, n_pad, micro_batch):
-            x = y[lo:lo + micro_batch]
-            if not graphed:
-                out[lo:lo + micro_batch].copy_(
-                    self.program(x.to(self.device), fused_gt))
-                continue
-            graph = self.graphs.get(key)
-            if graph is None:
-                graph = self.graphs[key] = graphs.Graph(
-                    lambda t: self.program(t, fused_gt), (x,), self.device)
-            out[lo:lo + micro_batch].copy_(graph(x), non_blocking=True)
-        if cuda:
-            graphs.wait(self.device)
-        return out.numpy()[:n].astype(np.float64)
+        with profiling.span("server.call", clips=n,
+                            micro_batches=n_pad // micro_batch):
+            cuda = self.device.type == "cuda"
+            graphed = graphs.replays(self.device)
+            with profiling.span("server.stage"):
+                y = torch.zeros((n_pad, wavs.shape[1]),
+                                dtype=torch.float32, pin_memory=cuda)
+                y[:n] = torch.from_numpy(np.asarray(wavs, np.float32))
+                out = torch.empty(n_pad, dtype=torch.float32,
+                                  pin_memory=cuda)
+            fused_gt = gt_switch()
+            key = (micro_batch, fused_gt, graphs.global_flags())
+            with profiling.span("server.issue"):
+                for lo in range(0, n_pad, micro_batch):
+                    x = y[lo:lo + micro_batch]
+                    if not graphed:
+                        out[lo:lo + micro_batch].copy_(
+                            self.program(x.to(self.device), fused_gt))
+                        continue
+                    graph = self.graphs.get(key)
+                    if graph is None:
+                        graph = self.graphs[key] = graphs.Graph(
+                            lambda t: self.program(t, fused_gt), (x,),
+                            self.device)
+                    out[lo:lo + micro_batch].copy_(graph(x),
+                                                   non_blocking=True)
+            with profiling.span("server.wait"):
+                if cuda:
+                    graphs.wait(self.device)
+            with profiling.span("server.unstage"):
+                return out.numpy()[:n].astype(np.float64)
 
 
 def serve_from_wav(ckpt_paths, archs, val_scores, wavs: np.ndarray,

@@ -27,6 +27,8 @@ import time
 
 import torch
 
+from tpu_breath_torch.utils import profiling
+
 
 def kernel_counters() -> dict:
     """kernel -> (wrapper module, name of its launch counter)."""
@@ -128,10 +130,18 @@ class Graph:
     capture_s: seconds of the warm call and the capture; pool_bytes: the
     graph's private memory pool (its peak: a pool's segments are not
     released while the graph lives); launches: kernel -> launches a replay.
+    The warm call and the capture are the span graph.capture (attr fn: fn's
+    qualified name); each adds one to the counter graph.captures.
     """
 
     def __init__(self, fn, examples: tuple, device, generators=()):
-        device = torch.device(device)
+        name = getattr(fn, "__qualname__", type(fn).__qualname__)
+        with profiling.span("graph.capture", fn=name):
+            self._capture(fn, examples, torch.device(device), generators)
+        profiling.count("graph.captures")
+
+    def _capture(self, fn, examples: tuple, device: torch.device,
+                 generators) -> None:
         t0 = time.perf_counter()
         with torch.cuda.device(device):
             self.static_in = tuple(

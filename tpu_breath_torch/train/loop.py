@@ -52,7 +52,6 @@ import time
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from tpu_breath_torch import augment, graphs
 from tpu_breath_torch.config import FeatureSpec, TrainCfg
@@ -64,6 +63,7 @@ from tpu_breath_torch.parallel import mesh as mesh_lib
 from tpu_breath_torch.train import checkpoint as ckpt_lib
 from tpu_breath_torch.train import metrics as metrics_mod
 from tpu_breath_torch.train.schedule import warmup_cosine
+from tpu_breath_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -320,20 +320,24 @@ def evaluate(predict: Predictor, labels_np: np.ndarray,
     """Loss, accuracy, AUC, precision, recall, F1 and the probability range
     over predict's rows (the JAX package's evaluate). Work queued on the
     current stream before the call (fit's epoch means) is complete after
-    it: it waits once."""
+    it: it waits once. Spans: fit.evaluate (the issue), fit.wait (the
+    wait), fit.metrics (the host's arithmetic)."""
     n = len(labels_np)
     n_use = (n // predict.batch_size) * predict.batch_size if drop_last else n
-    logits = predict(n_use)
-    if predict.feats.device.type == "cuda":
-        graphs.wait(predict.feats.device)
-    logits = logits.numpy()
-    labels = np.asarray(labels_np[:n_use])
-    probs = 1.0 / (1.0 + np.exp(-logits))
-    m = metrics_mod.binary_metrics(probs, labels)
-    m["loss"] = float(np.mean(np.maximum(logits, 0) - logits * labels
-                              + np.log1p(np.exp(-np.abs(logits)))))
-    m["prob_min"] = float(probs.min()) if n_use else 0.0
-    m["prob_max"] = float(probs.max()) if n_use else 0.0
+    with profiling.span("fit.evaluate"):
+        logits = predict(n_use)
+    with profiling.span("fit.wait"):
+        if predict.feats.device.type == "cuda":
+            graphs.wait(predict.feats.device)
+    with profiling.span("fit.metrics"):
+        logits = logits.numpy()
+        labels = np.asarray(labels_np[:n_use])
+        probs = 1.0 / (1.0 + np.exp(-logits))
+        m = metrics_mod.binary_metrics(probs, labels)
+        m["loss"] = float(np.mean(np.maximum(logits, 0) - logits * labels
+                                  + np.log1p(np.exp(-np.abs(logits)))))
+        m["prob_min"] = float(probs.min()) if n_use else 0.0
+        m["prob_max"] = float(probs.max()) if n_use else 0.0
     return m
 
 
@@ -393,12 +397,13 @@ def fit_step(model: nn.Module, optimizer: AdamW, lr, data: tuple,
     then the augmentation of the global batch (cfg.batch_size rows), drawn
     from gen in every step and gated by use_aug (a bool or a bool device
     scalar), as the JAX package draws and gates it; and train_step at rate
-    lr. Returns train_step's (loss, accuracy)."""
+    lr. Returns train_step's (loss, accuracy). The features of a fused
+    step, the gather included, are the span fused_features."""
     def take(t):
         return t if rows is None else t[rows]
     *x, labels = data
     if fused_spec is not None:
-        with record_function("fused_features"):  # the gather included
+        with profiling.span("fused_features"):
             x = fused_features(take(x[0]), fused_spec)
     else:
         x = [take(t) for t in x]
@@ -506,7 +511,14 @@ def fit(model: nn.Module, train_store, val_store, train_labels, val_labels,
     host once, at its end, for its loss, accuracy and validation logits.
 
     The whole run is inside reproducible(), with no way to leave it: the
-    JAX package's contract that a seed fixes the history."""
+    JAX package's contract that a seed fixes the history.
+
+    Spans (utils/profiling.py): an epoch is fit.epoch, its parts fit.upload
+    (the epoch's rates and order), one train_step a step (its issue),
+    fit.evaluate, fit.wait and fit.metrics (evaluate), fit.log and, when
+    validation improves, fit.snapshot; while recording, each step's device
+    time is the device span fit.step.device, read after the epoch's wait
+    (profiling.collect)."""
     device = mesh.device if mesh is not None else resolve_device(device)
     n_train = len(train_labels)
     b = cfg.batch_size
@@ -589,79 +601,87 @@ def fit(model: nn.Module, train_store, val_store, train_labels, val_labels,
         """Step s of an epoch, its loss and accuracy copied into the epoch's
         buffers (a graph's next replay overwrites its outputs)."""
         x = (item,) if mesh is None else item  # rows, or the streamed batch
-        loss, acc = run_step(*x, lr, gate[use_aug])
+        with profiling.device_span("fit.step.device", device):
+            loss, acc = run_step(*x, lr, gate[use_aug])
         losses[s].copy_(loss)
         accs[s].copy_(acc)
 
     layers.set_mesh(model, mesh)  # None: each layer's own code
     for epoch in range(start_epoch, cfg.num_epochs):
-        t0 = time.time()
-        use_aug = epoch >= cfg.warmup_epochs
-        aug_seed, drop_seed = epoch_seeds(cfg.seed, epoch)
-        gen.manual_seed(aug_seed)
-        rates = _upload(np.float32([schedule(step + s)
-                                    for s in range(steps_per_epoch)]), device)
-        if mesh is None:
-            perm = _upload(epoch_permutation(cfg.seed, epoch, n_train),
-                           device)
-            batches = (perm[s * b:(s + 1) * b]
-                       for s in range(steps_per_epoch))
-        else:
-            batches = loader.stream_batches(
-                host, local_batch, epoch_rng(cfg.seed, epoch), depth=2,
-                device=device, max_batches=steps_per_epoch)
-        with torch.random.fork_rng(devices=cuda_devices):
-            torch.manual_seed(drop_seed)  # dropout masks
-            for s, item in enumerate(batches):
-                # the ranges name a step's spans in a --profile trace
-                with record_function("train_step"):
-                    step_into(s, item, rates[s], use_aug)
-                step += 1
-        means = torch.stack([losses.double().mean(), accs.double().mean()])
-        if mesh is not None:  # the global batch's means
-            mesh_lib.all_reduce_mean_(mesh, [means])
-        means_host.copy_(means, non_blocking=cuda)
-        val = evaluate(predict, val_labels,  # the epoch's one wait
-                       drop_last=cfg.parity_drop_last_eval)
-        train_loss, train_acc = means_host.tolist()
-        if mesh is not None:  # one decision on every rank
-            val = mesh_lib.broadcast_object(mesh, val)
-        row = {"epoch": epoch + 1, "train_loss": train_loss,
-               "train_acc": train_acc, "val_loss": val["loss"],
-               "val_acc": val["acc"], "val_auc": val["auc"],
-               "val_f1": val["f1"], "val_precision": val["precision"],
-               "val_recall": val["recall"], "lr": schedule(step),
-               "sec": time.time() - t0}
-        history.append(row)
-        log_fn(f"[Epoch {epoch + 1:03d}] aug={'ON' if use_aug else 'OFF'} "
-               f"train loss {train_loss:.4f} acc {train_acc:.4f} | "
-               f"val loss {val['loss']:.4f} acc {val['acc']:.4f} "
-               f"auc {val['auc']:.4f} f1 {val['f1']:.4f} "
-               f"p∈[{val['prob_min']:.3f},{val['prob_max']:.3f}] "
-               f"lr {row['lr']:.2e} ({row['sec']:.1f}s)")
+        with profiling.span("fit.epoch", epoch=epoch + 1):
+            t0 = time.perf_counter()
+            use_aug = epoch >= cfg.warmup_epochs
+            aug_seed, drop_seed = epoch_seeds(cfg.seed, epoch)
+            gen.manual_seed(aug_seed)
+            with profiling.span("fit.upload"):
+                rates = _upload(np.float32([schedule(step + s) for s in
+                                            range(steps_per_epoch)]), device)
+                if mesh is None:
+                    perm = _upload(epoch_permutation(cfg.seed, epoch,
+                                                     n_train), device)
+            if mesh is None:
+                batches = (perm[s * b:(s + 1) * b]
+                           for s in range(steps_per_epoch))
+            else:
+                batches = loader.stream_batches(
+                    host, local_batch, epoch_rng(cfg.seed, epoch), depth=2,
+                    device=device, max_batches=steps_per_epoch)
+            with torch.random.fork_rng(devices=cuda_devices):
+                torch.manual_seed(drop_seed)  # dropout masks
+                for s, item in enumerate(batches):
+                    with profiling.span("train_step"):  # the step's issue
+                        step_into(s, item, rates[s], use_aug)
+                    step += 1
+            means = torch.stack([losses.double().mean(),
+                                 accs.double().mean()])
+            if mesh is not None:  # the global batch's means
+                mesh_lib.all_reduce_mean_(mesh, [means])
+            means_host.copy_(means, non_blocking=cuda)
+            val = evaluate(predict, val_labels,  # the epoch's one wait
+                           drop_last=cfg.parity_drop_last_eval)
+            profiling.collect()  # the device spans, now passed
+            train_loss, train_acc = means_host.tolist()
+            if mesh is not None:  # one decision on every rank
+                val = mesh_lib.broadcast_object(mesh, val)
+            row = {"epoch": epoch + 1, "train_loss": train_loss,
+                   "train_acc": train_acc, "val_loss": val["loss"],
+                   "val_acc": val["acc"], "val_auc": val["auc"],
+                   "val_f1": val["f1"], "val_precision": val["precision"],
+                   "val_recall": val["recall"], "lr": schedule(step),
+                   "sec": time.perf_counter() - t0}
+            history.append(row)
+            with profiling.span("fit.log"):
+                log_fn(f"[Epoch {epoch + 1:03d}] "
+                       f"aug={'ON' if use_aug else 'OFF'} "
+                       f"train loss {train_loss:.4f} acc {train_acc:.4f} | "
+                       f"val loss {val['loss']:.4f} acc {val['acc']:.4f} "
+                       f"auc {val['auc']:.4f} f1 {val['f1']:.4f} "
+                       f"p∈[{val['prob_min']:.3f},{val['prob_max']:.3f}] "
+                       f"lr {row['lr']:.2e} ({row['sec']:.1f}s)")
 
-        metric = val["acc"] if cfg.monitor == "val_acc" else -val["loss"]
-        best_metric = (best_val_acc if cfg.monitor == "val_acc"
-                       else -best_val_loss)
-        if metric - best_metric > cfg.min_delta:
-            best_val_acc, best_val_loss = val["acc"], val["loss"]
-            best_weights = _snapshot(model)
-            early_stop = 0
-            if save_dir:
-                meta = {"val_acc": val["acc"], "val_loss": val["loss"]}
-                if mesh_lib.is_primary(mesh):
-                    best_ckpt = ckpt_lib.save(
-                        save_dir, model, epoch + 1, meta,
-                        optimizer=optimizer, step=step)
-                else:
-                    best_ckpt = ckpt_lib.epoch_dir(save_dir, epoch + 1)
-                mesh_lib.barrier(mesh)  # rank 0's files are whole
-        else:
-            early_stop += 1
-            if early_stop >= cfg.patience:
-                log_fn(f"early stopping at epoch {epoch + 1} "
-                       f"(best val acc {best_val_acc:.4f})")
-                break
+            metric = val["acc"] if cfg.monitor == "val_acc" else -val["loss"]
+            best_metric = (best_val_acc if cfg.monitor == "val_acc"
+                           else -best_val_loss)
+            if metric - best_metric > cfg.min_delta:
+                best_val_acc, best_val_loss = val["acc"], val["loss"]
+                with profiling.span("fit.snapshot"):
+                    best_weights = _snapshot(model)
+                early_stop = 0
+                if save_dir:
+                    meta = {"val_acc": val["acc"], "val_loss": val["loss"]}
+                    if mesh_lib.is_primary(mesh):
+                        best_ckpt = ckpt_lib.save(
+                            save_dir, model, epoch + 1, meta,
+                            optimizer=optimizer, step=step)
+                    else:
+                        best_ckpt = ckpt_lib.epoch_dir(save_dir, epoch + 1)
+                    mesh_lib.barrier(mesh)  # rank 0's files are whole
+            else:
+                early_stop += 1
+                if early_stop >= cfg.patience:
+                    log_fn(f"early stopping at epoch {epoch + 1} "
+                           f"(best val acc {best_val_acc:.4f})")
+                    break
     layers.set_mesh(model, None)
     # the gradients of a captured step live in its graph's pool
     optimizer.zero_grad(set_to_none=True)

@@ -1,12 +1,15 @@
-"""Profiling of the feature graph and of training (counterpart of
-tpu_breath/utils/profiling.py), behind the CLI's --profile:
+"""Profiling of the port (counterpart of tpu_breath/utils/profiling.py):
+the recorder of the program's own spans and counters, and the CLI's
+--profile.
 
+- span / device_span / count / recording / records / collect: the
+  recorder (below);
 - feature_stages / profile_feature_stages / write_feature_profile: each
   named subgraph of the feature stack timed over chunks of precompute's
   size, slowest first -> feature_stages.json (`precompute --profile DIR`);
 - trace: a torch.profiler trace (CPU and, on the card, CUDA activity) of a
-  training run -> trace.json and a table of the top operations, ops.txt
-  (`train/e2e --profile DIR`);
+  training run, with recording on -> trace.json and a table of the top
+  operations, ops.txt (`train/e2e --profile DIR`);
 - write_train_profile: per-epoch wall time from fit histories ->
   train_profile.json.
 
@@ -16,18 +19,198 @@ stages run eagerly (extract_features and its subgraphs), not as the
 captured graph that precompute replays (features.extract_features_compiled):
 a graph replays the whole feature stack at once, so it has no stages to
 time.
+
+The recorder. The program names what it does with span(name, **attrs):
+fit's epochs and their parts, a train step's issue, Server's staging,
+issue and wait, the decoder, a graph's capture (the table of names is in
+PERF.md). A span records while recording is on (recording()) or a torch
+profiler is active; else it is one flag check and one call, and returns
+the shared null context. A recorded span keeps its name, start and end on
+time.perf_counter_ns(), its id and the id of the span that encloses it in
+its thread (so the parts of one epoch or one Server call carry that
+call's id) and its attrs, in memory, the newest KEEP of each kind;
+records() hands them over and clears them. Under a torch profiler a span
+is also a record_function of its name, so the profiler's trace names its
+host ranges by the program's spans; the profiler leaves the switch as it
+was, so once it stops the spans are the null context again. Nothing is
+written anywhere.
+
+device_span(name, device) times the device work a block queues by two
+CUDA events on the current stream, only while a span would record and on
+the card (else the null context: no event, so nothing captured with
+recording off holds an event node). collect() reads the events the
+device has passed; fit calls it after its epoch's one host wait, so no
+read waits.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import json
 import os
+import threading
 import time
 
 import numpy as np
 import torch
+from torch.autograd import profiler as autograd_profiler
 
 from tpu_breath_torch.device import resolve_device
+
+KEEP = 1 << 18  # the newest spans, device spans and counts kept of each
+
+# a span: name, id, the enclosing span's id (None at the top), start and
+# end (time.perf_counter_ns), attrs (a dict or None)
+Span = collections.namedtuple("Span", "name id parent t0_ns t1_ns attrs")
+# a device span: name, the enclosing span's id, the host time at which its
+# first event was recorded, device ms
+DeviceSpan = collections.namedtuple("DeviceSpan", "name parent t_ns ms")
+# a counter's increment at a host time
+Count = collections.namedtuple("Count", "name t_ns n")
+
+
+class _Recorder:
+    """The process's records (one instance, _REC): recording's switch,
+    the finished records and the device spans not yet read."""
+
+    def __init__(self):
+        self.on = False
+        self.spans = collections.deque(maxlen=KEEP)
+        self.device = collections.deque(maxlen=KEEP)
+        self.counts = collections.deque(maxlen=KEEP)
+        self.pending = []  # (name, parent, t_ns, start, end)
+        self.ids = itertools.count(1)
+        self.local = threading.local()
+
+    def stack(self) -> list:
+        """This thread's open spans' ids."""
+        st = getattr(self.local, "stack", None)
+        if st is None:
+            st = self.local.stack = []
+        return st
+
+    def top(self):
+        st = self.stack()
+        return st[-1] if st else None
+
+
+_REC = _Recorder()
+_NULL = contextlib.nullcontext()
+
+
+def _recording() -> bool:
+    """Whether a span records now: recording on or a profiler active."""
+    return _REC.on or autograd_profiler._is_profiler_enabled
+
+
+class _Span:
+    __slots__ = ("name", "attrs", "id", "parent", "t0", "rf", "stack")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name, self.attrs, self.rf = name, attrs or None, None
+
+    def __enter__(self):
+        if autograd_profiler._is_profiler_enabled:
+            self.rf = autograd_profiler.record_function(self.name)
+            self.rf.__enter__()
+        self.stack = _REC.stack()
+        self.parent = self.stack[-1] if self.stack else None
+        self.id = next(_REC.ids)
+        self.stack.append(self.id)
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter_ns()
+        self.stack.pop()
+        _REC.spans.append(Span(self.name, self.id, self.parent, self.t0, t1,
+                               self.attrs))
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        return False
+
+
+def span(name: str, **attrs):
+    """A context manager that records the block as span `name` while
+    recording is on or a torch profiler is active, else the shared null
+    context."""
+    if not _recording():
+        return _NULL
+    return _Span(name, attrs)
+
+
+class _DeviceSpan:
+    __slots__ = ("name", "start", "end", "parent", "t")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.start, self.end = (torch.cuda.Event(enable_timing=True)
+                                for _ in range(2))
+        self.parent, self.t = _REC.top(), time.perf_counter_ns()
+        self.start.record()
+        return self
+
+    def __exit__(self, *exc):
+        self.end.record()
+        _REC.pending.append((self.name, self.parent, self.t, self.start,
+                             self.end))
+        return False
+
+
+def device_span(name: str, device):
+    """A context manager that times the device work the block queues on
+    the current stream as device span `name`, while a span would record
+    and with `device` a CUDA device; else the shared null context (no
+    event)."""
+    if not _recording() or torch.device(device).type != "cuda":
+        return _NULL
+    return _DeviceSpan(name)
+
+
+def collect() -> None:
+    """Read the device spans the device has passed, without waiting (an
+    event not yet passed stays for a later call). Call it after a host
+    wait."""
+    left = []
+    for item in _REC.pending:
+        name, parent, t, start, end = item
+        if end.query():
+            _REC.device.append(DeviceSpan(name, parent, t,
+                                          start.elapsed_time(end)))
+        else:
+            left.append(item)
+    _REC.pending = left
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to counter `name` (kept with the time) while a span would
+    record."""
+    if _recording():
+        _REC.counts.append(Count(name, time.perf_counter_ns(), n))
+
+
+@contextlib.contextmanager
+def recording():
+    """Recording switched on inside the block, the previous state restored
+    after it."""
+    saved, _REC.on = _REC.on, True
+    try:
+        yield
+    finally:
+        _REC.on = saved
+
+
+def records() -> dict:
+    """{"spans": [Span], "device": [DeviceSpan], "counts": [Count]}, each
+    in the order recorded, and clear them."""
+    out = {}
+    for key in ("spans", "device", "counts"):
+        q = getattr(_REC, key)
+        out[key] = [q.popleft() for _ in range(len(q))]
+    return out
 
 
 def feature_stages() -> dict:
@@ -147,14 +330,16 @@ def write_feature_profile(profile_dir: str, wavs: np.ndarray,
 @contextlib.contextmanager
 def trace(profile_dir: str, device):
     """torch.profiler over the block (CPU activity, and CUDA activity on
-    the card); on exit writes profile_dir/trace.json (Chrome trace) and
-    profile_dir/ops.txt (top 40 operations by self time on the device)."""
+    the card), with recording on (the program's spans name the trace's
+    host ranges; their records stay for records()); on exit writes
+    profile_dir/trace.json (Chrome trace) and profile_dir/ops.txt (top 40
+    operations by self time on the device)."""
     device = resolve_device(device)
     os.makedirs(profile_dir, exist_ok=True)
     acts = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
+    with recording(), torch.profiler.profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
     key = ("self_device_time_total" if device.type == "cuda"
