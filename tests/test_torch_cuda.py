@@ -1084,6 +1084,69 @@ def test_graphed_fit_equals_eager_fit(clips, fused, monkeypatch):
     assert all(torch.equal(se[k], sg[k]) for k in se)
 
 
+@pytest.mark.parametrize("arch", ["cnn8", "vgg"])
+def test_train_step_body_runs_channels_last(clips, arch):
+    """A captured cached TrainStep (batch 8, augmentation and dropout on)
+    of each model, one replay under torch.profiler: the body runs
+    channels-last on the card, so no cuDNN NCHW<->NHWC transpose kernel
+    runs and torch's BatchNorm kernels are its channels-last ones, but for
+    one 2-D BatchNorm of CNN8: its scalar MLP ends in ReLU -> BatchNorm
+    with no dropout, so that layer's gradient is the strided column slice
+    the concatenation's backward hands back, which torch reduces with its
+    generic kernel; and 3 steps from one seed, twice, inside
+    loop.reproducible(), leave the same weights bit for bit."""
+    import collections
+    import re
+
+    from tpu_breath_torch.config import TrainCfg
+    from tpu_breath_torch.models import registry
+    from tpu_breath_torch.train import loop
+
+    _, f, s, y = _fit_data(clips)
+    data = tuple(torch.from_numpy(a).cuda() for a in (f, s, y))
+    cfg = TrainCfg(batch_size=8)
+    lr = torch.full((), 1e-3, device="cuda")
+    on = torch.ones((), dtype=torch.bool, device="cuda")
+    rows = torch.randperm(16, generator=torch.Generator().manual_seed(4)
+                          ).view(2, 8).cuda()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    def run(profile: bool):
+        model = registry.build(arch, 36, seed=3).cuda()
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        step = loop.TrainStep(model, loop.make_optimizer(model, cfg), data,
+                              cfg, gen)
+        torch.manual_seed(2)
+        names = []
+        for k in range(3):
+            if k == 2 and profile:
+                torch.cuda.synchronize()
+                with torch.profiler.profile(activities=acts) as prof:
+                    step(rows[k % 2], lr, on)
+                    torch.cuda.synchronize()
+                names = [e.name for e in prof.events()]
+            else:
+                step(rows[k % 2], lr, on)
+        torch.cuda.synchronize()
+        assert len(step.graphs) == 1
+        return dict(model.state_dict()), names
+
+    with loop.reproducible():
+        first, names = run(True)
+        second, _ = run(False)
+    assert not [n for n in names if "nchwToNhwc" in n or "nhwcToNchw" in n]
+    bn = collections.Counter(m.group(1) for m in (re.match(
+        r"void at::native::(batch_norm_\w*kernel)\b", n) for n in names)
+        if m)
+    assert bn["batch_norm_collect_statistics_channels_last_kernel"] > 0
+    assert bn["batch_norm_backward_reduce_channels_last_kernel"] > 0
+    strided = {"cnn8": 1, "vgg": 0}[arch]
+    assert {k: v for k, v in bn.items() if "channels_last" not in k} == (
+        {"batch_norm_backward_reduce_kernel": strided} if strided else {}), bn
+    assert all(torch.equal(first[k], second[k]) for k in first)
+
+
 def test_eval_graph_equals_eager(clips):
     """A Predictor of VGG (10 rows in batches of 4, the tail padded) gives
     eager logits bit for bit from one graph replayed every call."""

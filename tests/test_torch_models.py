@@ -247,3 +247,100 @@ def test_batchnorm_trains_as_flax(shape):
                                atol=1e-7)
     np.testing.assert_allclose(bn.running_var.numpy(),
                                np.asarray(stats["var"]), rtol=1e-6)
+
+
+def _layout_run(model, f, s, train, bns):
+    """A copy of model (in train or eval mode) on f, s: its logits, every
+    parameter's gradient of the training loss, the (channels-last,
+    NCHW-contiguous) flags of each ConvBlock output and of its gradient,
+    and for each BatchNorm named in bns (module, input, running mean and
+    var before the call)."""
+    import copy
+
+    from tpu_breath_torch.train.loop import bce_with_logits
+
+    m = copy.deepcopy(model).train(train)
+    layouts, seen = [], []
+
+    def flags(t):
+        return (t.is_contiguous(memory_format=torch.channels_last),
+                t.is_contiguous())
+
+    def keep(_m, _i, o):
+        layouts.append(flags(o))
+        o.register_hook(lambda g: layouts.append(flags(g)))
+
+    for block in m.convs:
+        block.register_forward_hook(keep)
+    for name in bns:
+        m.get_submodule(name).register_forward_pre_hook(
+            lambda b, i: seen.append((b, i[0].detach().double(),
+                                      b.running_mean.clone(),
+                                      b.running_var.clone())))
+    torch.manual_seed(0)  # the same dropout draws in every run
+    logits = m(f, s)
+    bce_with_logits(logits, (torch.arange(len(f)) % 2).float()).backward()
+    return (logits.detach(), {n: p.grad for n, p in m.named_parameters()},
+            layouts, seen)
+
+
+@pytest.mark.parametrize("train", [True, False])
+@pytest.mark.parametrize("arch", ["cnn8", "vgg"])
+def test_body_keeps_channels_last(arch, train):
+    """The body as the card runs it, on channels-last features (handed in
+    here; Classifier.forward re-lays them out on CUDA only), against the
+    NCHW run: every ConvBlock's output and its gradient stay channels-last
+    (the NCHW run's stay NCHW: the CPU path is unchanged), so each
+    BatchNorm's backward takes its channels-last kernels on the card; the
+    f32 logits agree within 1e-4, each image BatchNorm's running
+    statistics are Flax's update from its biased batch statistics (train)
+    or untouched (eval), and every parameter's gradient of the training
+    loss agrees within 1e-4 with the body in float64 (the head and VGG's
+    residual BatchNorm stay f32, as the model pins them). In f32 the two
+    layouts round otherwise, which moves a few values across a ReLU's kink
+    or a max pool's tie and single gradient elements by up to 2e-2
+    (measured, batch 4 at 128 x 63); in float64 the comparison holds the
+    layout alone (measured <= 1e-10). Odd sizes reach VGG's ceil-mode
+    pools and CNN8's floor ones."""
+    g = torch.Generator().manual_seed(5)
+    f = torch.randn(4, 9, 40, 21, generator=g)
+    s = torch.randn(4, 36, generator=g)
+    model = registry.build(arch, 36, seed=1)
+    bns = [n for n, m in model.named_modules()
+           if isinstance(m, BatchNorm) and (n.startswith("convs.")
+                                            or n == "res_bn")]
+    cl = torch.channels_last
+
+    ref, _, ref_layouts, _ = _layout_run(model, f, s, train, [])
+    got, _, layouts, seen = _layout_run(
+        model, f.contiguous(memory_format=cl), s, train, bns)
+    assert len(layouts) == 2 * len(model.convs)
+    assert all(c for c, _ in layouts), layouts
+    assert all(nchw and not c for c, nchw in ref_layouts), ref_layouts
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-4, rtol=0)
+    assert len(seen) == len(bns)
+    for bn, x, mean0, var0 in seen:
+        if not train:
+            assert torch.equal(bn.running_mean, mean0)
+            assert torch.equal(bn.running_var, var0)
+            continue
+        mean = 0.9 * mean0.double() + 0.1 * x.mean((0, 2, 3))
+        var = 0.9 * var0.double() + 0.1 * x.var((0, 2, 3), unbiased=False)
+        np.testing.assert_allclose(bn.running_mean.numpy(), mean.numpy(),
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(bn.running_var.numpy(), var.numpy(),
+                                   rtol=1e-5, atol=1e-6)
+
+    model.double()
+    for name in ("head", "res_bn"):
+        if hasattr(model, name):
+            model.get_submodule(name).float()
+    f64, s64 = f.double(), s.double()
+    _, ref_grads, _, _ = _layout_run(model, f64, s64, train, [])
+    _, grads, layouts, _ = _layout_run(
+        model, f64.contiguous(memory_format=cl), s64, train, [])
+    assert all(c for c, _ in layouts), layouts
+    assert set(grads) == set(ref_grads)
+    for name, grad in grads.items():
+        np.testing.assert_allclose(grad.numpy(), ref_grads[name].numpy(),
+                                   atol=1e-4, rtol=0, err_msg=name)

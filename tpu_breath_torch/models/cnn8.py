@@ -12,7 +12,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpu_breath_torch.models.layers import (Classifier, ConvBlock, Dropout2d,
-                                            MLPBlock)
+                                            MLPBlock, global_avg_pool)
 
 IN_CHANNELS = 9
 WIDTHS = (32, 64, 128, 128, 256, 256, 256, 256)
@@ -45,7 +45,7 @@ class CNN8(Classifier):
                 x = F.max_pool2d(x, 2)
             if i == DROP_AFTER:
                 x = self.channel_dropout(x)
-        x = x.mean(dim=(2, 3))
+        x = global_avg_pool(x)
         for block in self.scalar_mlp:
             s = block(s)
         z = torch.cat([x, s.to(x.dtype)], dim=-1)

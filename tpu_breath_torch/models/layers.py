@@ -1,5 +1,8 @@
 """Shared building blocks for the model zoo (counterpart of
-tpu_breath/models/layers.py), in NCHW.
+tpu_breath/models/layers.py): the model body runs channels-last on the
+card and NCHW on the CPU (Classifier.forward chooses by the features'
+device); every layer keeps the layout it is given, and the parameters
+stay NCHW-contiguous on both.
 
 BatchNorm trains as Flax's nn.BatchNorm(momentum=0.9, epsilon=1e-5) does:
 Flax's momentum 0.9 is PyTorch's 0.1, and Flax's running variance tracks
@@ -216,14 +219,26 @@ def max_pool_2x2(x: torch.Tensor, ceil_mode: bool = False) -> torch.Tensor:
     return F.max_pool2d(x, 2, ceil_mode=ceil_mode)
 
 
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """[B, C, H, W] -> the mean over H and W, [B, C]. An average pool, not
+    mean(dim=(2, 3)): its gradient comes back dense in x's layout, where
+    mean's is a broadcast (and VGG's cast back makes it an NCHW copy), which
+    sends the last BatchNorm's backward to torch's NCHW kernels."""
+    return F.avg_pool2d(x, tuple(x.shape[2:])).flatten(1)
+
+
 class Classifier(nn.Module):
     """features [B, C, H, W], scalars [B, S] -> logits [B]: the subclass's
     _body (to the last hidden layer) and its Linear `head`.
 
     On CUDA the body runs under bf16 autocast (the JAX package's bf16
-    activations) unless bf16 is False; the head always runs in f32.
-    Elsewhere the body runs in the input's dtype, or as the caller's
-    autocast says."""
+    activations) unless bf16 is False, and in channels-last memory format
+    (the features re-laid out once): cuDNN's sm_90 convolutions compute
+    NHWC, so an NCHW body pays a transpose in and out of every convolution,
+    and torch's NCHW BatchNorm kernels take one block a channel where the
+    channels-last ones fill the card. The head always runs in f32.
+    Elsewhere the body runs in the input's layout and dtype, or as the
+    caller's autocast says."""
 
     def __init__(self, bf16: bool = True):
         super().__init__()
@@ -236,6 +251,8 @@ class Classifier(nn.Module):
     def forward(self, features: torch.Tensor, scalars: torch.Tensor
                 ) -> torch.Tensor:
         dev = features.device.type
+        if dev == "cuda":
+            features = features.contiguous(memory_format=torch.channels_last)
         # under a CUDA graph capture the weights' bf16 casts are captured
         # with the rest, not cached across it (the same casts either way)
         with (torch.autocast("cuda", dtype=torch.bfloat16,

@@ -13,7 +13,8 @@ import torch
 from torch import nn
 
 from tpu_breath_torch.models.layers import (BatchNorm, Classifier, ConvBlock,
-                                            Dropout2d, MLPBlock, max_pool_2x2)
+                                            Dropout2d, MLPBlock,
+                                            global_avg_pool, max_pool_2x2)
 
 IN_CHANNELS = 9
 WIDTHS = (64, 128, 256, 512)
@@ -65,7 +66,7 @@ class VGG(Classifier):
         with torch.autocast(x.device.type, enabled=False):
             residual = self.res_bn(residual.float())
         main = self.drop(self._block(x, 3))
-        x = (main.float() + residual).to(main.dtype).mean(dim=(2, 3))
+        x = global_avg_pool((main.float() + residual).to(main.dtype))
         for block in self.scalar_mlp:
             s = block(s)
         z = torch.cat([x, s.to(x.dtype)], dim=-1)
