@@ -72,7 +72,9 @@ no result line):
      TPU_BREATH_PALLAS_GT=1, train --archs cnn8,vgg --epochs 6 --predict
      (full width, batch 512), train --archs cnn8 --epochs 7 --resume,
      predict from the cache and predict --from-wav; kernels A, B, B'', C
-     must launch;
+     must launch; then the AST (ast_cli): train --archs ast_base --epochs
+     2 from the cache and predict --from-wav --archs ast_base, its served
+     probabilities and its logits against the CPU's;
   repro. same seed, same history, with every cuDNN flag at its default
      (fit's own reproducible scope), on phase 6's dataset and cache: train
      cnn8,vgg 6 epochs again equals phase 6 bit for bit; train --fused
@@ -1449,6 +1451,7 @@ def phase_e2e(tmp: str, test_paths: list[str]) -> dict:
                              f"{res['launches']}")
     p_wav = np.array([float(l.split("\t")[2]) for l in out.splitlines()
                       if "\t" in l])
+    res["ast"] = ast_cli(common, served)
 
     # the outputs against the CPU: the ensemble on the cached test features
     # (bf16 autocast on the card, f32 on the CPU), and served clips vs the
@@ -1473,6 +1476,68 @@ def phase_e2e(tmp: str, test_paths: list[str]) -> dict:
         log(f"[e2e] {arch} val acc by epoch "
             f"{[round(r['val_acc'], 4) for r in res[arch]]}")
     return res
+
+
+def ast_cli(common: list[str], served: list[str]) -> dict:
+    """The AST through the CLI on phase 6's cache: train --archs ast_base
+    --epochs 2 (published widths, batch 512; fit's graphs), then predict
+    --from-wav --archs ast_base (the Server's graphs): finite history, a
+    checkpoint, one probability a served clip, and those probabilities
+    against the same checkpoint served on the CPU from the same wavs (f32,
+    the plain features), and its logits on the clips' cached features
+    against the CPU's."""
+    from tpu_breath_torch import cli, ensemble
+    from tpu_breath_torch.config import Paths
+    from tpu_breath_torch.data import dataset as ds
+    from tpu_breath_torch.train import checkpoint as ckpt_lib
+
+    root, out_root = (common[common.index(k) + 1]
+                      for k in ("--root", "--out-root"))
+    _, train_s = run_cli(["train", "--archs", "ast_base", "--epochs", "2",
+                          *common])
+    hist = read_history(out_root, "ast_base")
+    if len(hist) != 2 or not all(np.isfinite([r["train_loss"],
+                                              r["val_loss"]]).all()
+                                 for r in hist):
+        raise AssertionError(f"ast_base history: {hist}")
+    if ckpt_lib.latest_checkpoint(cli.ckpt_dir(out_root, "ast_base")) is None:
+        raise AssertionError("ast_base: no checkpoint")
+    out, _ = run_cli(["predict", "--from-wav", *served, "--archs",
+                      "ast_base", *common])
+    probs = [float(line.split("\t")[2]) for line in out.splitlines()
+             if "\t" in line]
+    if len(probs) != len(served) or not np.isfinite(probs).all():
+        raise AssertionError(f"ast_base predict --from-wav: {out[-2000:]}")
+    ckpts, scores = cli._load_ensemble_ckpts(out_root, ["ast_base"])
+    p_cpu = ensemble.serve_from_wav(ckpts, ["ast_base"], scores,
+                                    np.stack([read_wav(p) for p in served]),
+                                    device="cpu")
+    # two epochs at AST's rate from a random start saturate the sigmoid
+    # (PERF.md §7), so the logits of the same clips' cached features are
+    # held too: the card's bf16 against the CPU's f32, at the bound of the
+    # card test test_bf16_logits_near_the_f32_reference
+    store = ds.FeatureStore.load_cache(Paths(root, out_root).feature_cache)
+    te = store.subset([os.path.basename(p)[:-4] for p in served])
+    logits = {}
+    for d in ("cuda", "cpu"):
+        model, = ensemble.load_models(ckpts, ["ast_base"], 36, d)
+        with torch.no_grad():
+            logits[d] = model(torch.from_numpy(te.features).to(d),
+                              torch.from_numpy(te.scalars).to(d)
+                              ).double().cpu().numpy()
+    gap = float(np.max(np.abs(np.array(probs) - p_cpu)))
+    logit_gap = float(np.max(np.abs(logits["cuda"] - logits["cpu"])))
+    if gap > 2e-2 or logit_gap > 0.05 or logits["cpu"].std() <= 0.01:
+        raise AssertionError(f"ast_base served: card {probs}, cpu {p_cpu}; "
+                             f"logits card {logits['cuda']}, cpu "
+                             f"{logits['cpu']}")
+    log(f"[e2e] ast_base: 2 epochs in {train_s:.2f} s, val acc "
+        f"{[round(r['val_acc'], 4) for r in hist]}; {len(probs)} clips "
+        f"served from wav, |card (bf16) - cpu (f32)| max {gap:.3g} (bound "
+        f"2e-2); logits {np.round(logits['cpu'], 3).tolist()}, |card - "
+        f"cpu| max {logit_gap:.3g} (bound 0.05)")
+    return {"history": hist, "train_s": train_s, "probs": probs,
+            "cpu_gap": gap, "logit_gap": logit_gap}
 
 
 REPRO_KEYS = ("train_loss", "train_acc", "val_loss", "val_acc", "lr")

@@ -121,7 +121,7 @@ def test_eval_deterministic_train_stochastic():
 
 
 def test_registry():
-    assert set(registry.ARCHS) == {"cnn8", "vgg"}
+    assert set(registry.ARCHS) == {"cnn8", "vgg", "ast_base"}
     assert isinstance(registry.build("vgg", 36), VGG)
     with pytest.raises(ValueError):
         registry.build("resnet", 36)

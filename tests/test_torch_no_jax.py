@@ -33,7 +33,8 @@ MODULES = {
     "augment", "cli", "config", "device", "ensemble", "features",
     "graphs", "__main__", "baseline", "baseline.dsp_np", "baseline.feature_np",
     "data", "data.dataset",
-    "data.wav", "models", "models.cnn8", "models.convert", "models.layers",
+    "data.wav", "models", "models.ast_base", "models.cnn8", "models.convert",
+    "models.layers",
     "models.registry", "models.vgg", "ops", "ops.cepstral", "ops.chroma",
     "ops.cqt", "ops.cuda", "ops.cuda._build", "ops.cuda.cqt_kernel",
     "ops.cuda.epilogue_kernel",
@@ -45,7 +46,7 @@ MODULES = {
     "bench", "utils", "utils.gammatone_breakdown", "utils.kernel_times",
     "utils.parity_sweep", "utils.path_times", "utils.profiling",
     "utils.feature_roofline", "utils.seed_sweep", "utils.ensemble_val",
-    "utils.deviation_sweep", "utils.flip_hunt",
+    "utils.deviation_sweep", "utils.flip_hunt", "utils.sdpa_times",
 }
 
 

@@ -98,6 +98,8 @@ CNN8_TRAIN = TrainCfg(
     cutmix_prob=0.6, mixup_prob=0.4, warmup_epochs=4,
 )
 VGG_TRAIN = TrainCfg(num_epochs=140, patience=55)
+# VGG's run at the Speech Commands recipe's rate of AST (egs/speechcommands)
+AST_TRAIN = dataclasses.replace(VGG_TRAIN, base_lr=2.5e-4)
 
 
 @dataclasses.dataclass(frozen=True)

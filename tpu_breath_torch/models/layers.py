@@ -267,9 +267,16 @@ class Classifier(nn.Module):
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """The JAX package's init from a torch.Generator: He-normal (fan-in) conv
     kernels, Xavier-uniform dense kernels, zero biases, BN scale 1 / bias 0
-    / mean 0 / var 1 (tpu_breath/models/layers.py:23-24)."""
+    / mean 0 / var 1 (tpu_breath/models/layers.py:23-24); LayerNorm keeps
+    its constructor's scale 1 / bias 0; the parameters a module names in
+    TRUNC_NORMAL (a transformer's tokens and positions) truncated normal
+    with std 0.02, as timm draws them, from the same generator in module
+    order."""
     with torch.no_grad():
         for m in model.modules():
+            for name in getattr(m, "TRUNC_NORMAL", ()):
+                nn.init.trunc_normal_(getattr(m, name), std=0.02,
+                                      generator=generator)
             if isinstance(m, nn.Conv2d):
                 fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
                 nn.init.normal_(m.weight, 0.0, math.sqrt(2.0 / fan_in),
