@@ -10,18 +10,19 @@ no result line):
   2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel,
      sm_90a) and the host's wav decoder (csrc/wavio.cpp, g++), and print
      the times;
-  3. each kernel (A, B, B', B'', C, D) against its plain PyTorch version on
-     the card, at the main path's shapes with B = 8 and B = 128 (golden wavs
-     + seeded noise, silence, an impulse, quantized plateaus), with times
-     on both timers (the table's and a primed stream's) and the least time
-     the card could take (bound); B's, B''s, B'''s and D's rows of the
-     clips both sizes share must be bit-equal; C also on the dense worst
-     case (a candidate every other sample) and on rows of 40,000 samples
-     (its list then in device memory), exactly; D, on no path (as in the
-     JAX package), at the shapes of its function, beside conv1d; then the
-     kernels past their main-path tiles (check_past_tiles): B, B', B''
-     at larger T, F, G and K, B'' at B = 65,537, A past 28,000 pairs a
-     clip and D at 100,000 samples;
+  3. each kernel (A, B, B', B'', C, D, E) against its plain PyTorch
+     version on the card, at the main path's shapes with B = 8 and B = 128
+     (golden wavs + seeded noise, silence, an impulse, quantized
+     plateaus), with times on both timers (the table's and a primed
+     stream's) and the least time the card could take (bound); B's, B''s,
+     B'''s, D's and E's rows of the clips both sizes share must be
+     bit-equal, E's zeroed frames those of its plain version; C also on
+     the dense worst case (a candidate every other sample) and on rows of
+     40,000 samples (its list then in device memory), exactly; D, on no
+     path (as in the JAX package), at the shapes of its function, beside
+     conv1d; then the kernels past their main-path tiles
+     (check_past_tiles): B, B', B'' at larger T, F, G and K, B'' at
+     B = 65,537, A past 28,000 pairs a clip and D at 100,000 samples;
   4. extract_features on the card for the golden wavs, against the golden
      npz and the port's CPU result; with fused_gt (kernel B'') against the
      default path;
@@ -41,7 +42,8 @@ no result line):
      VGG, cached and fused (kernel B), 8 steps from one seeded state each
      way, augmentation on: losses, accuracies, every parameter and
      buffer, both moments and the step count bit-equal, the fused graph
-     holding A 8 / B 4 / C 4; (ii) in turns: ms a step (CUDA events), the
+     holding A 8 / B 4 / C 4 / E 4; (ii) in turns: ms a step (CUDA
+     events), the
      host's ms to queue one, one traced step (kernels, host launches,
      busy share; a replay's kernels inside its train_step range), an
      evaluation of 256 rows in a padded batch of 1,024 (logits
@@ -54,9 +56,11 @@ no result line):
      (fused_gt) against one oracle run; each holds the NaN masks equal, the
      real clips with no tuning flip inside PARITY.md's envelope (every
      channel <= 2.3e-4 abs, scalars <= 6.9e-4 rel, floor 1e-2) and no flip
-     wider than one count (tie width <= 1); A, B, B'', C must launch;
+     wider than one count (tie width <= 1); A, B, B'', C, E must launch;
+     the lpc channel's worst error with kernel E and with the float64 loop
+     it replaced (the B sweep again, eager, against its own oracle run);
   5. serve: seeded CNN8 checkpoint, `predict --from-wav --archs cnn8` through
-     cli.main on cuda; kernels A, B, C must launch;
+     cli.main on cuda; kernels A, B, C, E must launch;
   decode. the threaded C++ decoder (data/wav.load_wav_batch) against its
      plain numpy version on seeded wavs of every format it reads (PCM
      8/16/24/32, IEEE f32/f64, EXTENSIBLE, 1-3 channels, 8,000-48,000 Hz,
@@ -80,20 +84,20 @@ no result line):
      cnn8,vgg 6 epochs again equals phase 6 bit for bit; train --fused
      cnn8,vgg twice, equal; a 7-epoch cnn8 run stopped at its 4th epoch
      line and resumed equals an uninterrupted one; --seed 1 differs from
-     seed 0; A/B''/C launched 384/192/192 times; then scope_cost: the
+     seed 0; A/B''/C/E launched 384/192/192/192 times; then scope_cost: the
      bench's split pieces (fwd, grad, cached and fused steps, batch 512)
      timed with and without loop.reproducible() in turns, printed as
      {"scope_cost": ...};
   7. fused: the features inside one fused step against the cache's rows
      (equal), then train --archs cnn8,vgg --epochs 6 from the cache and
      train --fused ... --predict with TPU_BREATH_PALLAS_GT=1, cuDNN flags
-     at their defaults: equal histories, A/B''/C launched 192/96/96
+     at their defaults: equal histories, A/B''/C/E launched 192/96/96/96
      times, a submission;
   mesh. data parallelism (parallel/mesh.py): (i) one NCCL rank in this
      process, where the mesh's programs replay CUDA graphs: the streamed
      step programs graphed against eager, 8 steps of CNN8 and VGG,
-     cached and fused, bit-equal (the fused graph A 8 / B 4 / C 4), then
-     for CNN8 in turns ms a step (CUDA events, the loader included), host
+     cached and fused, bit-equal (the fused graph A 8 / B 4 / C 4 / E 4),
+     then for CNN8 in turns ms a step (CUDA events, the loader included), host
      ms to issue one and a traced step (host launches, kernels, busy
      share); fit's streaming path (graphed) against the resident path
      (cached CNN8, batch 512, 2 epochs, f32: train accuracy equal, losses
@@ -106,7 +110,7 @@ no result line):
      (TPU_BREATH_PALLAS_GT=1) gives phase 6's cache bit for bit, train
      --mesh 2 cnn8,vgg (6 epochs, augmentation from the 5th) and train
      --fused --mesh 2 cnn8 (2 epochs, kernel B) end with
-     bit-equal weights on both ranks; A, B'', C and A, B, C launch in each
+     bit-equal weights on both ranks; A, B'', C and A, B, C, E launch in each
      rank; ms per step on the host clock;
   8. profile: precompute --profile (stages, slowest first) and train
      --fused --archs cnn8 --epochs 2 --profile: 4 train_step spans on the
@@ -118,12 +122,12 @@ no result line):
      (2,048 seeded clips, chunk 128, batch 512, 8 steps, 24 oracle clips,
      5 repeats): its line printed as {"bench": ...}; every rate and latency
      finite and positive, every MFU in (0, 1], the fused CNN8 step's
-     clips/s at most the feature graph's alone; A, C and B launched;
+     clips/s at most the feature graph's alone; A, C, E and B launched;
   tools. the port's tools (tpu_breath_torch/utils): the feature roofline
      at its defaults (2,048 seeded clips, chunks of 128), its report printed
      as {"roofline": ...}: shares in (0, 1.05], known bounds, `full`'s
      FLOPs the bench's count, bytes counted alike on the card and the CPU,
-     A, C and B launched; seed_sweep (cnn8, seeds 0 and 1, cached and
+     A, C, E and B launched; seed_sweep (cnn8, seeds 0 and 1, cached and
      fused, 2 epochs) on phase 6's dataset and summarize, agreeing;
      ensemble_val on phase 6's checkpoints; deviation_sweep folded into a
      parity sweep by --deviations; find_flips on the parity phase's clips;
@@ -183,6 +187,9 @@ TOLS = {"B": 1e-5, "B'": 5e-5, "B''": 1e-5}
 # kernel D: max|a - b| / max|b| against its plain version (float64), the
 # JAX package's tests/test_pallas_cqt.py bound
 TOL_D = 1e-5
+# kernel E: max |a - b| / max(1, |b|) against its plain version (both
+# float64, rounded to f32 once)
+TOL_E = 1e-5
 
 
 def log(msg: str) -> None:
@@ -248,6 +255,8 @@ def bounds(x: dict, rounds: int) -> dict:
         "B''": work_lib.gammatone(b, t, k, f, g),
         "C": work_lib.peaks(b, x["scores"].shape[-1], rounds),
         "D": work_lib.cqt(b, x["y"].shape[-1], *cqt_args()),
+        "E": work_lib.lpc(b, x["y"].shape[-1], x["lpc"][1].shape[0],
+                          *x["lpc"][3:]),
     }
     return {name: w.bound_ms() for name, w in work.items()}
 
@@ -260,9 +269,9 @@ def phase_kernels() -> dict:
 
     rounds = SR // (SR // 10) + 2
     res = {k: {"err": 0.0}
-           for k in ("A", "B", "B'", "B''", "C", "C dense", "D")}
+           for k in ("A", "B", "B'", "B''", "C", "C dense", "D", "E")}
     n_shared = len(golden()) + 2  # clip_set's first clips at every size
-    gt_rows, cqt_rows, mags = {}, {}, {}
+    gt_rows, cqt_rows, lpc_rows, mags = {}, {}, {}, {}
     for b in (MICRO, CHUNK):
         y = torch.from_numpy(clip_set(b, seed=b)).cuda()
         x = kernel_inputs(y)
@@ -310,11 +319,25 @@ def phase_kernels() -> dict:
                                  f"rel err {rel_d} >= {TOL_D}")
         res["D"]["err"] = max(res["D"]["err"],
                               float((got - ref).abs().max()))
+        got, ref = out["E"]
+        zero = (ref == 0).all(dim=1, keepdim=True).expand_as(ref)
+        rel_e = float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max())
+        if not (torch.equal((got == 0).all(dim=1, keepdim=True).expand_as(
+                got), zero) and torch.equal(got[zero], ref[zero])
+                and rel_e <= TOL_E):
+            raise AssertionError(f"kernel E B {b}: max |a-b|/max(1,|b|) "
+                                 f"{rel_e} (tol {TOL_E}), or its zeroed "
+                                 f"frames differ from the plain version's")
+        res["E"]["err"] = max(res["E"]["err"],
+                              float((got - ref).abs().max()))
+        lpc_rows[b] = got[:n_shared]
         log(f"[kernels] B={b}: A exact at bpo 12/36, "
             + ", ".join(f"{k} err {errs[k]:.3g} (tol {t:g})"
                         for k, t in TOLS.items())
             + f", C kept exact (= scipy counts), vals err {err_c:.3g}, "
-            f"D max|a-b|/max|b| {rel_d:.3g} (tol {TOL_D:g})")
+            f"D max|a-b|/max|b| {rel_d:.3g} (tol {TOL_D:g}), "
+            f"E max|a-b|/max(1,|b|) {rel_e:.3g} (tol {TOL_E:g}; "
+            f"{int(zero[:, 0].sum())} frames zeroed, as plain)")
         (vals, kept), (rvals, rkept) = out["C dense"]
         if not (torch.equal(kept, rkept) and torch.equal(vals, rvals)):
             raise AssertionError(f"kernel C dense B {b}: differs from its "
@@ -347,6 +370,12 @@ def phase_kernels() -> dict:
         raise AssertionError(f"kernel D: the {n_shared} shared clips' rows "
                              f"differ between B = {MICRO} and B = {CHUNK}")
     log(f"[kernels] D: the rows of the {n_shared} shared clips are "
+        f"bit-equal at B = {MICRO} and B = {CHUNK}")
+    # E computes each frame in one warp, in an order fixed by its length
+    if not torch.equal(lpc_rows[MICRO], lpc_rows[CHUNK]):
+        raise AssertionError(f"kernel E: the {n_shared} shared clips' rows "
+                             f"differ between B = {MICRO} and B = {CHUNK}")
+    log(f"[kernels] E: the rows of the {n_shared} shared clips are "
         f"bit-equal at B = {MICRO} and B = {CHUNK}")
     # B and B' too, on the same magnitudes of those clips in both batches
     shared = mags[MICRO][:n_shared]
@@ -947,7 +976,8 @@ def phase_steps(smi: str) -> dict:
                     f"tensors (parameters, buffers, moments, count) "
                     f"bit-equal{'' if not diff else f'; max |diff| {diff}'};"
                     f" graph launches a replay {graph.launches}")
-                want = ({"A": 8, "B": 4, "C": 4} if mode == "fused" else {})
+                want = ({"A": 8, "B": 4, "C": 4, "E": 4} if mode == "fused"
+                        else {})
                 if not (row["losses_equal"] and row["accs_equal"]
                         and not diff) or {k: v for k, v in
                                           graph.launches.items() if v} != want:
@@ -1062,13 +1092,33 @@ def _eval_times(model, data: dict, pools: list) -> dict:
 
 
 
+@contextlib.contextmanager
+def lpc_loop():
+    """Inside the block lpc_kernel.lpc_frames is its plain version, the
+    float64 loop the feature graph ran before kernel E, on every device."""
+    from tpu_breath_torch.ops.cuda import lpc_kernel
+
+    saved = lpc_kernel.lpc_frames
+    lpc_kernel.lpc_frames = lpc_kernel.lpc_frames_plain
+    try:
+        yield
+    finally:
+        lpc_kernel.lpc_frames = saved
+
+
 def phase_parity(smi: str) -> dict:
     """The parity sweep on the card against the port's oracle, kernel B
-    and kernel B'' (see the module docstring). Returns the phase's
-    launches."""
+    and kernel B'' (see the module docstring), and the lpc channel's worst
+    error before and after kernel E: the kernel B sweep run eagerly with
+    the plain float64 loop in kernel E's place, against its own oracle run
+    of the same clips. Returns the phase's launches and the two errors."""
+    from tpu_breath_torch import graphs
     from tpu_breath_torch.utils import parity_sweep
 
     wavs, ids, synthetic = parity_sweep.seeded_clips(512, seed=0)
+    with graphs.eager(), lpc_loop():
+        loop_rep = parity_sweep.sweeps(wavs, ids, 128, seed=0,
+                                       device="cuda", synthetic=synthetic)[0]
     reset_launches()
     t0 = time.perf_counter()
     reports = parity_sweep.sweeps(wavs, ids, 128, seed=0, device="cuda",
@@ -1100,11 +1150,18 @@ def phase_parity(smi: str) -> dict:
         log(f"[parity] {kernel} report {json.dumps(rep)}")
         misses[kernel] = parity_sweep.envelope_misses(rep)
     log(f"[parity] sweep {seconds:.2f} s; launches {launches}")
+    lpc_err = {when: {group: rep[key]["lpc"]["max"] for group, key in (
+        ("real_unflipped", "channel_max_abs_err_unflipped"),
+        ("all", "channel_max_abs_err"))}
+        for when, rep in (("loop", loop_rep), ("kernel", reports[0]))}
+    log(f"[parity] lpc channel, max abs against the oracle: the float64 "
+        f"loop {lpc_err['loop']}, kernel E {lpc_err['kernel']} (real clips "
+        f"with no flip: bound {parity_sweep.ENVELOPE_ABS}); {smi}")
     if any(misses.values()):
         raise AssertionError(f"parity sweep misses the envelope: {misses}")
-    if min(launches[k] for k in ("A", "B", "B''", "C")) <= 0:
+    if min(launches[k] for k in ("A", "B", "B''", "C", "E")) <= 0:
         raise AssertionError(f"a kernel was not launched: {launches}")
-    return {"launches": launches}
+    return {"launches": launches, "lpc_err": lpc_err}
 
 
 def _nan_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -1155,7 +1212,7 @@ def phase_serve(tmp: str) -> dict:
     launches = read_launches()
     log(f"[serve] predict --from-wav ({len(paths)} clips) in {serve_s:.2f} s "
         f"(first call, includes model load); launches {launches}")
-    if min(launches[k] for k in ("A", "B", "C")) <= 0:
+    if min(launches[k] for k in ("A", "B", "C", "E")) <= 0:
         raise AssertionError(f"a kernel was not launched: {launches}")
     lines = [l.split("\t") for l in out.getvalue().splitlines() if "\t" in l]
     probs = np.array([float(p) for _, _, p in lines])
@@ -1411,9 +1468,9 @@ def phase_e2e(tmp: str, test_paths: list[str]) -> dict:
     log(f"[e2e] precompute: {res['decode_line']}; {res['precompute_line']}; "
         f"whole command {dt:.2f} s")
     after_pre = read_launches()
-    if after_pre["B''"] <= 0 or after_pre["B"] != 0:
+    if min(after_pre["B''"], after_pre["E"]) <= 0 or after_pre["B"] != 0:
         raise AssertionError(f"precompute with TPU_BREATH_PALLAS_GT=1 did "
-                             f"not take kernel B'': {after_pre}")
+                             f"not take kernels B'' and E: {after_pre}")
 
     _, res["train_s"] = run_cli(["train", "--archs", "cnn8,vgg", "--epochs",
                                  "6", "--predict", *common])
@@ -1640,7 +1697,8 @@ def phase_repro(tmp: str, e2e: dict) -> dict:
                       if r["epoch"] >= first], True)
 
     launches = read_launches()
-    want = {"A": 384, "B": 0, "B'": 0, "B''": 192, "C": 192, "D": 0}
+    want = {"A": 384, "B": 0, "B'": 0, "B''": 192, "C": 192, "D": 0,
+            "E": 192}
     seconds = time.perf_counter() - t0
     log(f"[repro] launches {launches} (expected {want}: 2 fused runs); "
         f"phase {seconds:.1f} s")
@@ -1755,7 +1813,8 @@ def phase_fused(tmp: str) -> dict:
         _, res["train_s"] = run_cli(["train", "--fused", "--predict",
                                      *common, "--out-root", fused_out])
         res["launches"] = read_launches()
-    want = {"A": 192, "B": 0, "B'": 0, "B''": 96, "C": 96, "D": 0}
+    want = {"A": 192, "B": 0, "B'": 0, "B''": 96, "C": 96, "D": 0,
+            "E": 96}
     log(f"[fused] launches over train --fused {res['launches']} (expected "
         f"{want}: 6 epochs x 2 steps x 4 chunks x 2 archs)")
     if res["launches"] != want:
@@ -2008,10 +2067,10 @@ def mesh_steps(mesh, smi: str) -> dict:
     and fused (kernel B), two programs from one seeded state run 8 steps
     each on the same batches, augmentation on: losses, accuracies, every
     parameter and buffer, both moments and the step count bit-equal, the
-    fused graph holding A 8 / B 4 / C 4. Then for CNN8, cached and fused,
-    in turns (eager, graph, graph, eager): ms a step (CUDA events over 8
-    streamed steps, the loader included), the host's ms to issue a step's
-    call, one traced step (kernels, host launches, busy share)."""
+    fused graph holding A 8 / B 4 / C 4 / E 4. Then for CNN8, cached and
+    fused, in turns (eager, graph, graph, eager): ms a step (CUDA events
+    over 8 streamed steps, the loader included), the host's ms to issue a
+    step's call, one traced step (kernels, host launches, busy share)."""
     from tpu_breath_torch import bench, graphs
     from tpu_breath_torch.features import extract_features_batched
     from tpu_breath_torch.train import loop
@@ -2055,7 +2114,7 @@ def mesh_steps(mesh, smi: str) -> dict:
                     f"launches a replay {graph.launches}; capture (warm step "
                     f"included) {graph.capture_s:.2f} s, pool "
                     f"{graph.pool_bytes / 2**20:.0f} MiB")
-                want = {"A": 8, "B": 4, "C": 4} if fused else {}
+                want = {"A": 8, "B": 4, "C": 4, "E": 4} if fused else {}
                 if not (le == lg and ae == ag and not diff) or {
                         k: v for k, v in graph.launches.items() if v} != want:
                     failed.append(name)
@@ -2232,7 +2291,7 @@ def phase_mesh(tmp: str, smi: str) -> dict:
     --mesh 2 cnn8,vgg (cached, 6 epochs: augmentation and its partner
     gather from epoch 5) and train --fused --mesh 2 cnn8 (2 epochs, kernel
     B) end with bit-equal weights on both ranks and finite histories; A,
-    B'', C (precompute) and A, B, C (fused) launch in each rank
+    B'', C (precompute) and A, B, C, E (fused) launch in each rank
     (mesh_runs). Returns the launches of (i) and the ranks of (ii)."""
     from tpu_breath_torch import cli
     from tpu_breath_torch.config import CNN8_TRAIN, DEFAULT_FEATURES, Paths
@@ -2356,7 +2415,7 @@ def mesh_runs(tmp: str, root: str, world: int, smi: str,
                 if len(h) != epochs or not all(np.isfinite(
                         [r["train_loss"], r["val_loss"]]).all() for r in h):
                     raise AssertionError(f"{name} {arch} history: {h}")
-            need = ("A", "B", "C") if name == "fused" else ()
+            need = ("A", "B", "C", "E") if name == "fused" else ()
             for r, d in enumerate(ranks):
                 if need and min(d["launches"][k] for k in need) <= 0:
                     raise AssertionError(f"{name} rank {r}: {d['launches']}")
@@ -2528,7 +2587,7 @@ def phase_bench(smi: str) -> dict:
     this process: its line printed as {"bench": ...}. Fails unless every
     rate and latency is finite and positive, every MFU lies in (0, 1], the
     fused step's clips/s is at most the feature graph's alone (it does
-    strictly more a clip), and A, C and B or B'' launched on its path.
+    strictly more a clip), and A, C, E and B or B'' launched on its path.
     Returns the phase's launches."""
     from tpu_breath_torch import bench
 
@@ -2574,7 +2633,7 @@ def phase_bench(smi: str) -> dict:
     if not line["value"] <= line["feature_only_clips_per_s"]:
         raise AssertionError(f"bench: fused {line['value']} clips/s above "
                              f"the features alone")
-    if min(launches["A"], launches["C"],
+    if min(launches["A"], launches["C"], launches["E"],
            max(launches["B"], launches["B''"])) <= 0:
         raise AssertionError(f"a kernel was not launched: {launches}")
     return {"launches": launches}
@@ -2594,7 +2653,8 @@ def phase_tools(tmp: str, smi: str) -> dict:
     ...}: every share in (0, 1.05] (a FLOP share exactly 0 where a stage
     counts no FLOPs), every bound one of the three, `full`'s FLOPs
     bench.feature_flops(128), each stage's bytes and kernel calls at B = 8
-    the same counted on the card as on the CPU, A, C and B or B'' launched;
+    the same counted on the card as on the CPU, A, C, E and B or B''
+    launched;
     (b) seed_sweep (cnn8, seeds 0 and 1, cached and fused, 2 epochs) on
     phase 6's dataset, then summarize on its directory: the two summaries
     agree on every key both hold; (c) ensemble_val on phase 6's CNN8 and
@@ -2648,7 +2708,7 @@ def phase_tools(tmp: str, smi: str) -> dict:
         f"card as on the CPU; {times['roofline']:.1f} s")
     if bad:
         raise AssertionError(f"roofline out of range: {bad}")
-    if min(launches["A"], launches["C"],
+    if min(launches["A"], launches["C"], launches["E"],
            max(launches["B"], launches["B''"])) <= 0:
         raise AssertionError(f"roofline: a kernel was not launched: "
                              f"{launches}")
@@ -2834,17 +2894,19 @@ def main(argv: list[str] | None = None) -> int:
          "epilogue_kernel.py:126"),
         ("C", "suppress_peaks", "peaks_kernel.cu", "peaks_kernel.py:78"),
         ("D", "cqt_mag", "cqt_kernel.cu", "cqt_kernel.py:98"),
+        ("E", "burg_lpc", "lpc_kernel.cu", None),
     ]
     # launches: each path counted from 0 just before it runs; times at the
-    # precompute chunk (B = 128). No single PyTorch call computes A-C;
-    # D's library time is conv1d's (its complex response, no |.|)
+    # precompute chunk (B = 128). No single PyTorch call computes A-C or
+    # E; D's library time is conv1d's (its complex response, no |.|). E
+    # replaces no TPU kernel (the JAX package leaves lpc to XLA)
     paths = {"steps": steps["launches"], "serve": serve["launches"],
              "e2e": e2e["launches"], "repro": repro["launches"],
              "fused": fused["launches"], "mesh": mesh["launches"],
              "parity": parity["launches"], "bench": bench["launches"],
              "tools": tools["launches"]}
     kernels = [{"name": name, "route": "cuda", "source": f"{src}/{f}",
-                "replaces": f"{pallas}/{rep}",
+                "replaces": rep and f"{pallas}/{rep}",
                 "launches": sum(p[k] for p in paths.values()),
                 "launches_by_path": {n: p[k] for n, p in paths.items()},
                 "max_abs_err": ker[k]["err"], "ms": ker[k][CHUNK][0],

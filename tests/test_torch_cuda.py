@@ -442,6 +442,88 @@ def test_peaks_kernel_exact_on_long_rows(clips, n):
         assert int(kept[i].sum()) == len(found), i
 
 
+def _lpc_rows(clips) -> torch.Tensor:
+    """The clips (golden wavs, noise, an impulse, silence, a quantized
+    clip), a clip with a NaN and one with an inf, then seeded noise: 16
+    rows."""
+    g = torch.Generator(device="cuda").manual_seed(21)
+    bad = clips[:2].clone()
+    bad[0, 8000] = torch.nan
+    bad[1, 100] = torch.inf
+    noise = 0.05 * torch.randn(16 - len(clips) - 2, 16000, generator=g,
+                               device="cuda")
+    return torch.cat([clips, bad, noise])
+
+
+@pytest.mark.parametrize("b", [1, 8, 128])
+def test_lpc_kernel_vs_plain_at_batch(clips, b):
+    """Kernel E against its plain version (the float64 loop) on the card
+    at B = 1 (each row alone), 8 and 128 (the rows repeated): coefficients
+    within 1e-5 x max(1, |a|), in the plain version's memory layout; the
+    frames the plain version zeroes (silence's 0 / 0, a NaN or an inf
+    inside) zero in the kernel too, bit for bit, and no other."""
+    from tpu_breath_torch.ops import lpc
+    from tpu_breath_torch.ops.cuda import lpc_kernel as lk
+
+    rows = _lpc_rows(clips)
+    batches = ([rows[i:i + 1] for i in range(len(rows))] if b == 1 else
+               [rows.repeat(b // len(rows) + 1, 1)[:b].contiguous()])
+    zeroed = 0
+    for y in batches:
+        args = lpc.lpc_args(y, 16000)
+        got = lk.lpc_frames(*args, 12)
+        torch.cuda.synchronize()
+        ref = lk.lpc_frames_plain(*args, 12)
+        assert got.shape == ref.shape == (len(y), 12, 98)
+        assert got.stride() == ref.stride()  # the z-norm's summing order
+        zero = (ref == 0).all(dim=1, keepdim=True).expand_as(ref)
+        assert torch.equal((got == 0).all(dim=1, keepdim=True).expand_as(got),
+                           zero)
+        assert torch.equal(got[zero], ref[zero])
+        err = (got - ref).abs() / ref.abs().clamp(min=1.0)
+        assert float(err.max()) <= 1e-5
+        zeroed += int(zero[:, 0].sum())
+    # silence's frames and the NaN's and the inf's are there to be zeroed
+    assert zeroed >= 98 + 3 + 1
+
+
+@pytest.mark.parametrize("sr", [8000, 22050, 40000])
+def test_lpc_kernel_at_other_rates(clips, sr):
+    """Kernel E at the frames other sample rates give (200, 551 and 1,000
+    samples: past 417 the kernel's second instantiation, 32 samples of
+    each window a lane) against its plain version, within 1e-5 x
+    max(1, |a|)."""
+    from tpu_breath_torch.ops import lpc
+    from tpu_breath_torch.ops.cuda import lpc_kernel as lk
+
+    args = lpc.lpc_args(clips, sr)
+    got = lk.lpc_frames(*args, 12)
+    torch.cuda.synchronize()
+    ref = lk.lpc_frames_plain(*args, 12)
+    assert args[1].shape[0] == int(0.025 * sr)
+    assert got.shape == ref.shape and got.stride() == ref.stride()
+    assert torch.equal(got == 0, ref == 0)
+    err = (got - ref).abs() / ref.abs().clamp(min=1.0)
+    assert float(err.max()) <= 1e-5
+
+
+def test_lpc_rows_do_not_depend_on_batch(clips):
+    """Kernel E's rows are bit-equal wherever a clip sits and whatever B:
+    each frame's sums run in one warp in an order fixed by its length."""
+    from tpu_breath_torch.ops import lpc
+    from tpu_breath_torch.ops.cuda import lpc_kernel as lk
+
+    rows = _lpc_rows(clips)
+    full = lk.lpc_frames(*lpc.lpc_args(rows, 16000), 12)
+    for shift in (1, 5):
+        rolled = torch.roll(rows, shift, 0).contiguous()
+        got = lk.lpc_frames(*lpc.lpc_args(rolled, 16000), 12)
+        assert torch.equal(torch.roll(got, -shift, 0), full)
+    for i in (0, 3, len(rows) - 1):
+        one = lk.lpc_frames(*lpc.lpc_args(rows[i:i + 1], 16000), 12)
+        assert torch.equal(one[0], full[i])
+
+
 def _captured_node_types(call) -> list[int]:
     """The type (libcuda's CUgraphNodeType, 0 a kernel) of each node of
     the CUDA graph captured from one call."""
@@ -466,10 +548,10 @@ def _captured_node_types(call) -> list[int]:
     return types
 
 
-@pytest.mark.parametrize("kernel", ["A", "B''", "C", "B", "B'", "D"])
+@pytest.mark.parametrize("kernel", ["A", "B''", "C", "B", "B'", "D", "E"])
 def test_wrapper_call_is_one_kernel_launch(clips, kernel):
-    """One call of kernel A's, B'''s, C's, B's, B''s or D's wrapper on CUDA
-    tensors runs one kernel on the card and nothing else: a CUDA graph
+    """One call of kernel A's, B'''s, C's, B's, B''s, D's or E's wrapper on
+    CUDA tensors runs one kernel on the card and nothing else: a CUDA graph
     captured from a warm call holds one node, a kernel, and the wrapper's
     launch count went up by one (its kernel). Its outputs are allocated,
     not converted."""
@@ -477,7 +559,9 @@ def test_wrapper_call_is_one_kernel_launch(clips, kernel):
     from tpu_breath_torch.ops import chroma, spectral
     from tpu_breath_torch.ops.cuda import cqt_kernel as ck
     from tpu_breath_torch.ops.cuda import epilogue_kernel as ek
+    from tpu_breath_torch.ops import lpc
     from tpu_breath_torch.ops.cuda import gammatone_kernel as gk
+    from tpu_breath_torch.ops.cuda import lpc_kernel as lk
     from tpu_breath_torch.ops.cuda import peaks_kernel as pk
     from tpu_breath_torch.ops.cuda import tuning_kernel as tk
 
@@ -506,6 +590,10 @@ def test_wrapper_call_is_one_kernel_launch(clips, kernel):
     elif kernel == "D":
         call = lambda: ck.cqt_mag(clips, 16000, 256, SPEC.cqt_fmin, 252, 36)
         count = lambda: ck.LAUNCHES
+    elif kernel == "E":
+        args = lpc.lpc_args(clips, 16000)
+        call = lambda: lk.lpc_frames(*args, SPEC.n_lpc)
+        count = lambda: lk.LAUNCHES
     else:
         mag = spectral.stft_mag_cr(clips, 512, 256).contiguous()
         fb = spectral.device_const(spectral.mel_matrix, 16000, 512, 64,
@@ -654,10 +742,19 @@ def test_features_gpu_match_cpu(clips):
 
 
 def test_wrappers_reject_wrong_dtype(clips):
+    from tpu_breath_torch.ops import lpc
+    from tpu_breath_torch.ops.cuda import lpc_kernel as lk
     from tpu_breath_torch.ops.cuda import peaks_kernel as pk
 
     with pytest.raises(TypeError):
         pk.suppress_peaks(clips.double(), 1600, 12)
+    y_emph, window, hop, n_frames = lpc.lpc_args(clips, 16000)
+    for y, w in ((y_emph.double(), window), (y_emph, window.float()),
+                 (y_emph.t().contiguous().t(), window)):
+        with pytest.raises(TypeError):
+            lk.lpc_frames(y, w, hop, n_frames, 12)
+    with pytest.raises(ValueError):  # the window on another device
+        lk.lpc_frames(y_emph, window.cpu(), hop, n_frames, 12)
 
 
 @pytest.mark.parametrize("b", [1, 8, 128, 130])
@@ -930,7 +1027,7 @@ def _nan_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
 def test_graph_replays_equal_eager(clips, b, fused_gt):
     """extract_features_compiled's replays of two inputs in turn equal
     extract_features (eager) bit for bit, NaN where NaN; the graph holds
-    kernels A twice, B or B'' and C once, and k replays add k times those
+    kernels A twice, B or B'', C and E once, and k replays add k times those
     launches to the counters."""
     from tpu_breath_torch import features, graphs
     from tpu_breath_torch.config import DEFAULT_FEATURES as SPEC
@@ -951,7 +1048,8 @@ def test_graph_replays_equal_eager(clips, b, fused_gt):
     for out, ref in zip(got, (*eager, eager[0])):
         assert all(_nan_equal(o, r) for o, r in zip(out, ref))
     assert graph.launches == {"A": 2, "B": 0 if fused_gt else 1, "B'": 0,
-                              "B''": 1 if fused_gt else 0, "C": 1, "D": 0}
+                              "B''": 1 if fused_gt else 0, "C": 1, "D": 0,
+                              "E": 1}
     assert {k: after[k] - before[k] for k in after} == {
         k: 3 * n for k, n in graph.launches.items()}
 

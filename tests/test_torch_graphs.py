@@ -195,11 +195,11 @@ def test_replay_launch_accounting():
     """graphs.add_launches adds a graph's per-kernel counts to the wrappers'
     counters (what a replay does) and read_launches reads them back."""
     before = graphs.read_launches()
-    graphs.add_launches({"A": 2, "B''": 1, "C": 1})
+    graphs.add_launches({"A": 2, "B''": 1, "C": 1, "E": 1})
     after = graphs.read_launches()
-    graphs.add_launches({"A": -2, "B''": -1, "C": -1})
+    graphs.add_launches({"A": -2, "B''": -1, "C": -1, "E": -1})
     assert {k: after[k] - before[k] for k in after} == {
-        "A": 2, "B": 0, "B'": 0, "B''": 1, "C": 1, "D": 0}
+        "A": 2, "B": 0, "B'": 0, "B''": 1, "C": 1, "D": 0, "E": 1}
     assert graphs.read_launches() == before
     from tpu_breath_torch.ops.cuda import gammatone_kernel, tuning_kernel
     assert (tuning_kernel.LAUNCHES, gammatone_kernel.LAUNCHES) == (

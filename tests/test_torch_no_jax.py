@@ -38,8 +38,9 @@ MODULES = {
     "models.registry", "models.vgg", "ops", "ops.cepstral", "ops.chroma",
     "ops.cqt", "ops.cuda", "ops.cuda._build", "ops.cuda.cqt_kernel",
     "ops.cuda.epilogue_kernel",
-    "ops.cuda.gammatone_kernel", "ops.cuda.peaks_kernel",
-    "ops.cuda.tuning_kernel", "ops.cuda.work", "ops.dft", "ops.lpc", "ops.peaks",
+    "ops.cuda.gammatone_kernel", "ops.cuda.lpc_kernel",
+    "ops.cuda.peaks_kernel", "ops.cuda.tuning_kernel", "ops.cuda.work",
+    "ops.dft", "ops.lpc", "ops.peaks",
     "ops.rhythm", "ops.scalars", "ops.select", "ops.spectral",
     "parallel", "parallel.mesh", "data.loader", "train",
     "train.checkpoint", "train.loop", "train.metrics", "train.schedule",

@@ -23,7 +23,8 @@ from tpu_breath.train.metrics import binary_metrics as jx_metrics
 from tpu_breath.utils import profiling as jx_profiling
 from tpu_breath_torch import bench
 from tpu_breath_torch.ops.cuda import (epilogue_kernel, gammatone_kernel,
-                                       peaks_kernel, tuning_kernel, work)
+                                       lpc_kernel, peaks_kernel, tuning_kernel,
+                                       work)
 from tpu_breath_torch.utils import (deviation_sweep, ensemble_val,
                                     feature_roofline, flip_hunt,
                                     parity_sweep, profiling, seed_sweep)
@@ -290,6 +291,8 @@ def test_kernel_bytes_are_the_work_model_at_the_tables_shapes(b):
          work.gammatone(b, t, k, f, g), "B''"),
         (lambda: peaks_kernel.suppress_peaks(x["scores"], 1600, rounds),
          work.peaks(b, 16000, rounds), "C"),
+        (lambda: lpc_kernel.lpc_frames(*x["lpc"]),
+         work.lpc(b, 16000, 400, 98, 12), "E"),
     ]
     assert (bb, f, t, g, k) == (b, 257, 63, 64, 512)
     for call, w, name in calls:
@@ -303,11 +306,12 @@ def test_kernel_bytes_are_the_work_model_at_the_tables_shapes(b):
 
 # the kernel table's bounds (PERF.md §6), ms at B = 8 / 128, 4 decimals
 TABLE_BOUNDS = {8: {"A": 0.0005, "B": 0.0002, "B'": 0.0002, "B''": 0.0042,
-                    "C": 0.0002, "D": 0.0316},
+                    "C": 0.0002, "D": 0.0316, "E": 0.0011},
                 128: {"A": 0.0072, "B": 0.0040, "B'": 0.0040, "B''": 0.0673,
-                      "C": 0.0024, "D": 0.5063}}
+                      "C": 0.0024, "D": 0.5063, "E": 0.0173}}
 TABLE_BY = {"A": "bytes", "B": "operations", "B'": "operations",
-            "B''": "operations", "C": "bytes", "D": "operations"}
+            "B''": "operations", "C": "bytes", "D": "operations",
+            "E": "operations"}
 
 
 @pytest.mark.parametrize("b", [8, 128])
@@ -346,10 +350,12 @@ def test_cpu_roofline_records_the_host_clock_and_no_share(roofline):
 def test_roofline_full_counts_the_bench_flops_and_the_path_kernels(roofline):
     full = roofline["stages"]["full"]
     assert full["flops_per_chunk"] == bench.feature_flops(8)
-    assert full["kernel_calls_per_chunk"] == {"A": 2, "B": 1, "C": 1}
+    assert full["kernel_calls_per_chunk"] == {"A": 2, "B": 1, "C": 1,
+                                              "E": 1}
     calls = {k: v["kernel_calls_per_chunk"]
              for k, v in roofline["stages"].items()}
     assert calls["tuning36"] == {"A": 1} and calls["find_peaks"] == {"C": 1}
+    assert calls["lpc"] == {"E": 1}
     assert calls["chroma_stft"] == {"A": 1} and calls["scalars"] == {"C": 1}
 
 

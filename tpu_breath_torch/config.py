@@ -149,4 +149,4 @@ DEFAULT_FEATURES = FeatureSpec()
 # Stamp of the numeric output of the port's feature stack. The flat feature
 # cache records it and a mismatch reads as no cache. Bump on any change that
 # alters extract_features output.
-FEATURE_NUMERIC_VERSION = "torch-5"
+FEATURE_NUMERIC_VERSION = "torch-6"

@@ -35,6 +35,7 @@ SIGNATURES = {
     "suppress_peaks_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "cqt_mag_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                        _P],
+    "burg_lpc_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -12,10 +12,13 @@ import dataclasses
 import numpy as np
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 CUDA-core FLOP/s,
-# f64 tensor-core FLOP/s (the card's fastest float64 rate)
+# f64 tensor-core FLOP/s (the card's fastest float64 rate), f64 CUDA-core
+# FLOP/s (132 SMs x 64 FMAs x 2 x 1.98 GHz; the sheet rounds it to 34) for
+# work no tensor core takes
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
 F64_FLOPS = 67e12
+F64_CUDA_FLOPS = 33.5e12
 HBM_SOURCE = "NVIDIA H100 SXM data sheet: 3.35 TB/s HBM3"
 
 
@@ -63,6 +66,21 @@ def peaks(b: int, n: int, rounds: int) -> Work:
     """Kernel C: scores [b, n] -> vals f32 and kept uint8 [b, rounds];
     `rounds` passes of one compare per score."""
     return Work(b * n * 4 + b * rounds * 5, rounds * b * n, F32_FLOPS)
+
+
+def lpc(b: int, n: int, frame: int, n_frames: int, order: int) -> Work:
+    """Kernel E: y_emph [b, n] f32 and the float64 window [frame] ->
+    [b, order, n_frames] f32. A frame: one product a sample to window it;
+    at step i (windows of m = frame - 1 - i samples) the three sums of
+    products (6 m), the reflection (2), the coefficients' update
+    (2 (i + 1)) and, except at the last step, the two windows' updates
+    (4 m)."""
+    ops = frame
+    for i in range(order):
+        m = frame - 1 - i
+        ops += 6 * m + 2 + 2 * (i + 1) + (4 * m if i + 1 < order else 0)
+    return Work(b * n * 4 + frame * 8 + b * order * n_frames * 4,
+                b * n_frames * ops, F64_CUDA_FLOPS)
 
 
 def cqt(b: int, n: int, sr: int, hop: int, fmin: float, n_bins: int,

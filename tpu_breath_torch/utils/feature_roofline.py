@@ -61,7 +61,8 @@ from tpu_breath_torch import bench
 from tpu_breath_torch.device import resolve_device
 from tpu_breath_torch.ops import spectral
 from tpu_breath_torch.ops.cuda import (epilogue_kernel, gammatone_kernel,
-                                       peaks_kernel, tuning_kernel, work)
+                                       lpc_kernel, peaks_kernel, tuning_kernel,
+                                       work)
 from tpu_breath_torch.utils import parity_sweep, profiling
 
 N_CLIPS = 2048
@@ -106,6 +107,9 @@ KERNELS = {
     (peaks_kernel, "suppress_peaks"):
         lambda scores, distance, rounds: (
             "C", work.peaks(*scores.shape, rounds)),
+    (lpc_kernel, "lpc_frames"):
+        lambda y_emph, window, hop, n_frames, order: (
+            "E", work.lpc(*y_emph.shape, window.shape[0], n_frames, order)),
 }
 
 

@@ -1,4 +1,4 @@
-"""Kernels A, B, B', B'', C and D of this checkout on the card: their times
+"""Kernels A, B, B', B'', C, D and E of this checkout on the card: their times
 on two timers, and their outputs kept for comparing two checkouts bit for
 bit.
 
@@ -10,7 +10,8 @@ The inputs are chip_smoke.py's kernel inputs (this module builds them for
 both): the golden wavs, silence, an impulse, a quantized clip, then seeded
 noise, at B = 8 and 128; and kernel C's dense worst case, a candidate every
 other sample; kernel D (on no path) takes the clips themselves, at the
-shapes of its function (cqt_args). Each kernel and its plain version is
+shapes of its function (cqt_args); kernel E the clips pre-emphasised, as
+ops/lpc.py gives them. Each kernel and its plain version is
 timed by CUDA events over 20 back-to-back calls after 3 warm-ups, unprimed
 (where the host queues a call more slowly than the card runs it, the host
 sets the pace) and primed (a spin kernel first holds the stream, so the
@@ -108,7 +109,8 @@ def clip_set(n: int, seed: int) -> np.ndarray:
 
 def kernel_inputs(y: torch.Tensor) -> dict:
     """The kernels' inputs as the main path builds them from clips y."""
-    from tpu_breath_torch.ops import chroma, dft, peaks, spectral
+    from tpu_breath_torch.config import DEFAULT_FEATURES as SPEC
+    from tpu_breath_torch.ops import chroma, dft, lpc, peaks, spectral
 
     s512 = spectral.stft_mag_cr(y, 512, 256).contiguous()
     s2048 = spectral.stft_mag_cr(y, 2048, 256)[..., ::2]
@@ -126,9 +128,10 @@ def kernel_inputs(y: torch.Tensor) -> dict:
                                    ).contiguous()
     basis = spectral.device_const(spectral.framedft_basis, 512,
                                   device=y.device)
+    y_emph, window, hop, n_frames = lpc.lpc_args(y, SR)
     return {"p12": p12, "m12": m12, "p36": p36, "m36": m36, "mag": s512,
             "fb": fb, "scores": scores, "frames": frames, "basis": basis,
-            "y": y}
+            "y": y, "lpc": (y_emph, window, hop, n_frames, SPEC.n_lpc)}
 
 
 def dense_scores(b: int, seed: int) -> torch.Tensor:
@@ -152,6 +155,7 @@ def calls(x: dict, dense: torch.Tensor) -> dict:
     from tpu_breath_torch.ops.cuda import (cqt_kernel as ck,
                                            epilogue_kernel as ek,
                                            gammatone_kernel as gk,
+                                           lpc_kernel as lk,
                                            peaks_kernel as pk,
                                            tuning_kernel as tk)
 
@@ -177,6 +181,8 @@ def calls(x: dict, dense: torch.Tensor) -> dict:
                                    pk.suppress_peaks_plain)),
         "D": tuple(lambda f=f: f(x["y"], *cqt_args())
                    for f in (ck.cqt_mag, ck.cqt_mag_plain)),
+        "E": tuple(lambda f=f: f(*x["lpc"])
+                   for f in (lk.lpc_frames, lk.lpc_frames_plain)),
     }
 
 
@@ -221,7 +227,7 @@ def main(argv: list[str] | None = None) -> None:
                     help="two saved outputs: which are bit-equal")
     ap.add_argument("--kernels", nargs="+", metavar="K",
                     help="time only these (names as in calls: B, B', B'', "
-                         "C, 'C dense', D)")
+                         "C, 'C dense', D, E)")
     args = ap.parse_args(argv)
     if args.compare:
         a, b = (torch.load(p) for p in args.compare)
