@@ -32,16 +32,17 @@ no result line):
      replay adding its graph's launches; a Server of CNN8 + VGG bit-equal
      to the eager composition at micro-batches of 1 and 8; then eager and
      graphed in turns: serve at B = 1 and 8, extract_features_batched over
-     2,048 clips, the bench's split piece `features`, the profiler's
-     busy share of a serve call, each graph's capture time and pool;
+     2,048 clips, the fused step's features at batch 512 (4 chunks of
+     128), the profiler's busy share of a serve call, each graph's capture
+     time and pool;
      printed as {"graphs": ...}. Every later phase runs the graphed path
      (features, serve, train and eval steps);
   steps. fit's step and evaluation programs (loop.TrainStep,
      loop.Predictor) as CUDA graphs against the same programs eager
-     (graphs.eager()), batch 512 on the bench's seeded clips: (i) CNN8 and
-     VGG, cached and fused (kernel B), 8 steps from one seeded state each
-     way, augmentation on: losses, accuracies, every parameter and
-     buffer, both moments and the step count bit-equal, the fused graph
+     (graphs.eager()), batch 512 on seeded clips: (i) CNN8 and VGG,
+     cached and fused (kernel B), 8 steps from one seeded state each way,
+     augmentation on: losses, accuracies, every parameter and buffer,
+     both moments and the step count bit-equal, the fused graph
      holding A 8 / B 4 / C 4 / E 4; (ii) in turns: ms a step (CUDA
      events), the
      host's ms to queue one, one traced step (kernels, host launches,
@@ -84,10 +85,7 @@ no result line):
      cnn8,vgg 6 epochs again equals phase 6 bit for bit; train --fused
      cnn8,vgg twice, equal; a 7-epoch cnn8 run stopped at its 4th epoch
      line and resumed equals an uninterrupted one; --seed 1 differs from
-     seed 0; A/B''/C/E launched 384/192/192/192 times; then scope_cost: the
-     bench's split pieces (fwd, grad, cached and fused steps, batch 512)
-     timed with and without loop.reproducible() in turns, printed as
-     {"scope_cost": ...};
+     seed 0; A/B''/C/E launched 384/192/192/192 times;
   7. fused: the features inside one fused step against the cache's rows
      (equal), then train --archs cnn8,vgg --epochs 6 from the cache and
      train --fused ... --predict with TPU_BREATH_PALLAS_GT=1, cuDNN flags
@@ -118,26 +116,17 @@ no result line):
      other three replays, every kernel of a replay inside its step's
      span), the top device operations of the replayed steps, kernels A,
      B'', C among them;
-  bench. the port's bench (tpu_breath_torch/bench.py) at its defaults
-     (2,048 seeded clips, chunk 128, batch 512, 8 steps, 24 oracle clips,
-     5 repeats): its line printed as {"bench": ...}; every rate and latency
-     finite and positive, every MFU in (0, 1], the fused CNN8 step's
-     clips/s at most the feature graph's alone; A, C, E and B launched;
   tools. the port's tools (tpu_breath_torch/utils): the feature roofline
      at its defaults (2,048 seeded clips, chunks of 128), its report printed
-     as {"roofline": ...}: shares in (0, 1.05], known bounds, `full`'s
-     FLOPs the bench's count, bytes counted alike on the card and the CPU,
-     A, C, E and B launched; seed_sweep (cnn8, seeds 0 and 1, cached and
-     fused, 2 epochs) on phase 6's dataset and summarize, agreeing;
+     as {"roofline": ...}: shares in (0, 1.05], known bounds, bytes
+     counted alike on the card and the CPU, A, C, E and B launched;
+     seed_sweep (cnn8, seeds 0 and 1, cached and fused, 2 epochs) on
+     phase 6's dataset and summarize, agreeing;
      ensemble_val on phase 6's checkpoints; deviation_sweep folded into a
      parity sweep by --deviations; find_flips on the parity phase's clips;
-  9. timings: extract_features (B = 8 / 128), one serve call and the
-     serve micro-batch's median and p90 over 40 calls, the train steps of
-     CNN8 and VGG at batch 512 (the steps phase's replays), epoch wall
-     times and precompute clips/s;
- 10. the kernels JSON line (launches by path: steps, serve, e2e, repro,
-     fused, mesh, parity, bench, tools; a graph's replay counts the
-     kernels it holds), then the last line: {"ok": true, "device": {...}}.
+  9. the kernels JSON line (launches by path: steps, serve, e2e, repro,
+     fused, mesh, parity, tools; a graph's replay counts the kernels it
+     holds), then the last line: {"ok": true, "device": {...}}.
 
 With --cards N (N cards): phases 1 and 2, then the seeded dataset's
 precompute in one process, cached CNN8 and VGG fits on one NCCL rank with
@@ -170,9 +159,11 @@ import torch
 from tpu_breath_torch.graphs import add_launches, read_launches
 from tpu_breath_torch.ops.cuda import work as work_lib
 from tpu_breath_torch.utils.kernel_times import calls as kernel_calls
-from tpu_breath_torch.utils.kernel_times import (clip_set, cqt_args, cuda_ms,
-                                                 dense_scores, golden,
-                                                 kernel_inputs)
+from tpu_breath_torch.utils.kernel_times import (LAUNCHES, WARMUP, clip_set,
+                                                 cqt_args, dense_scores,
+                                                 golden, kernel_inputs,
+                                                 table_times)
+from tpu_breath_torch.utils.profiling import device_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SR = 16000
@@ -194,6 +185,28 @@ TOL_E = 1e-5
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def clips(n: int, seed: int = 0) -> np.ndarray:
+    """[n, 16000] f32: seeded Gaussian noise of loudness 1e-3 to 0.3."""
+    rng = np.random.default_rng(seed)
+    amp = 10.0 ** rng.uniform(-3, -0.5, size=(n, 1))
+    return (rng.standard_normal((n, SR)) * amp).astype(np.float32)
+
+
+def host_ms(fn, n: int, warmup: int) -> list[float]:
+    """Host-clock ms of fn() and a synchronize of the card, n times, after
+    `warmup` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
 
 
 def phase_env() -> dict:
@@ -347,15 +360,14 @@ def phase_kernels() -> dict:
         log(f"[kernels] B={b}: C on the dense worst case (8,000 candidates "
             f"a clip, {int(kept.sum())} kept) equals its plain version")
         for k, (run, plain) in calls.items():
-            res[k][b] = (cuda_ms(run), cuda_ms(plain),
-                         cuda_ms(run, primed=True),
-                         cuda_ms(plain, primed=True))
+            t = res[k][b] = table_times(run, plain)
             bound, by = res["bound", b][k]
-            log(f"[time] kernel {k} B={b}: {res[k][b][0]:.4f} ms, plain "
-                f"{res[k][b][1]:.4f} ms, bound {bound:.4f} ms ({by}); "
-                f"stream primed: {res[k][b][2]:.4f} ms, plain "
-                f"{res[k][b][3]:.4f} ms")
-        res["D", "library", b] = cuda_ms(cqt_conv1d(y))
+            log(f"[time] kernel {k} B={b}: {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}); "
+                f"stream primed: {t['primed_ms']:.4f} ms, plain "
+                f"{t['plain_primed_ms']:.4f} ms")
+        res["D", "library", b] = device_ms(cqt_conv1d(y), "cuda", LAUNCHES,
+                                           warmup=WARMUP)[0]
         log(f"[time] kernel D B={b}: library conv1d (f32, TF32 off; the "
             f"complex response without |.|) {res['D', 'library', b]:.4f} ms")
     # B'' computes each clip alone: the clips both sizes share give the
@@ -603,14 +615,13 @@ def phase_graphs(smi: str) -> dict:
     eager composition (extract_features -> ensemble.blend) at micro-batches
     of 1 and 8, with a tail: probabilities bit-equal; (c) eager and graphed
     in turns (eager, graph, graph, eager): serve at B = 1 and 8 (host
-    clock, 40 calls each), extract_features_batched over the bench's 2,048
-    clips in chunks of 128 (clips/s, 5 runs each), the bench's split
-    piece `features` at batch 512 (CUDA events, 2 rounds of 8 launches
-    each), and the profiler's device-busy share of one serve call (B = 8);
+    clock, 40 calls each), extract_features_batched over 2,048 seeded
+    clips in chunks of 128 (clips/s, 5 runs each), the fused step's
+    features at batch 512 (CUDA events, 2 rounds of 8 launches each), and
+    the profiler's device-busy share of one serve call (B = 8);
     then each graph's capture time and pool. (The train and eval steps'
     graphs: phase_steps.) Prints {"graphs": ...}."""
-    from tpu_breath_torch import bench, ensemble, features
-    from tpu_breath_torch.utils import path_times
+    from tpu_breath_torch import ensemble, features
 
     t0 = time.perf_counter()
     res: dict = {"a": [], "pools": []}
@@ -657,7 +668,7 @@ def phase_graphs(smi: str) -> dict:
                                   *features.extract_features(y)).cpu().numpy()
 
     for b in (1, MICRO):
-        w = path_times.clips(2 * b + 1, seed=7)
+        w = clips(2 * b + 1, seed=7)
         got = server(w, micro_batch=b)
         wp = np.concatenate([w, np.zeros((b - 1, w.shape[1]), np.float32)])
         ref = np.concatenate([eager_serve(wp[lo:lo + b])
@@ -674,12 +685,12 @@ def phase_graphs(smi: str) -> dict:
     order = (False, True, True, False)
     serve = {}
     for b in (1, MICRO):
-        w = path_times.clips(b, seed=1)
+        w = clips(b, seed=1)
         runs = {False: [], True: []}
         for graphed in order:
-            fn = ((lambda: path_times.serve_call(server, w)) if graphed
+            fn = ((lambda: server(w, micro_batch=b)) if graphed
                   else (lambda: eager_serve(w)))
-            runs[graphed] += path_times.host_ms(fn, 20, 5, "cuda")
+            runs[graphed] += host_ms(fn, 20, 5)
         serve[b] = {mode: {"median": float(np.median(v)),
                            "p90": float(np.percentile(v, 90)),
                            "calls": len(v)}
@@ -693,7 +704,7 @@ def phase_graphs(smi: str) -> dict:
             f"{serve[b]['graph']['p90']:.3f}; {smi}")
     res["serve_ms"] = serve
 
-    wavs = bench.noise(2048)
+    wavs = clips(2048)
 
     def eager_batched():
         for lo in range(0, len(wavs), CHUNK):
@@ -706,8 +717,7 @@ def phase_graphs(smi: str) -> dict:
                     False, True):
         fn = ((lambda: features.extract_features_batched(wavs, chunk=CHUNK))
               if graphed else eager_batched)
-        ms = path_times.host_ms(fn, 1, 1 if not rates[graphed] else 0,
-                                "cuda")[0]
+        ms = host_ms(fn, 1, 1 if not rates[graphed] else 0)[0]
         rates[graphed].append(len(wavs) / ms * 1e3)
     res["features_clips_per_s"] = {
         mode: {"median": float(np.median(v)), "runs": v}
@@ -740,26 +750,22 @@ def phase_graphs(smi: str) -> dict:
 
 
 def _graph_split(wavs: np.ndarray) -> dict:
-    """The bench's split piece `features` at batch 512 (its 4 chunks of
-    128), eager (graphs.eager()) and graphed in turns: ms a launch by CUDA
-    events, 2 rounds of 8 launches each way."""
-    from tpu_breath_torch import bench, graphs
-    from tpu_breath_torch.config import CNN8_TRAIN, DEFAULT_FEATURES
-    from tpu_breath_torch.models import registry
-    from tpu_breath_torch.train import loop
+    """The fused step's features at batch 512 (extract_features_compiled
+    over its 4 chunks of 128), eager (graphs.eager()) and graphed in
+    turns: ms a launch by CUDA events, 2 rounds of 8 launches each way."""
+    from tpu_breath_torch import graphs
+    from tpu_breath_torch.features import extract_features_compiled
 
-    w = torch.from_numpy(wavs[:512]).cuda()
-    y = torch.from_numpy(np.tile(np.float32([0.0, 1.0]), 256)).cuda()
-    model = registry.build("cnn8", 36, seed=0).cuda()
-    features = bench.split_pieces(
-        model, loop.make_optimizer(model, CNN8_TRAIN), CNN8_TRAIN,
-        DEFAULT_FEATURES, w, y, 1e-4,
-        torch.Generator(device="cuda").manual_seed(1))["features"]
+    w = torch.from_numpy(wavs[:STEP_BATCH]).cuda()
+
+    def features():
+        for lo in range(0, STEP_BATCH, CHUNK):
+            extract_features_compiled(w[lo:lo + CHUNK])
+
     ms = {False: [], True: []}
     for graphed in (False, True, True, False):
         with contextlib.nullcontext() if graphed else graphs.eager():
-            ms[graphed] += bench.event_ms(features, 8, 1,
-                                          torch.device("cuda"))
+            ms[graphed] += device_ms(features, "cuda", STEPS, warmup=1)
     out = {"features": {mode: float(np.median(ms[g]))
                         for mode, g in (("eager", False), ("graph", True))}}
     log(f"[graphs] (c) features of a batch of 512 (4 chunks of 128), ms a "
@@ -820,11 +826,9 @@ def _busy(fn, with_host: bool = False) -> dict:
 
 def _busy_shares(server, eager_serve) -> dict:
     """_busy of one serve call (CNN8 + VGG, B = 8), eager and graphed."""
-    from tpu_breath_torch.utils import path_times
-
-    w = path_times.clips(MICRO, seed=1)
+    w = clips(MICRO, seed=1)
     out = {"serve_eager": _busy(lambda: eager_serve(w)),
-           "serve_graph": _busy(lambda: path_times.serve_call(server, w))}
+           "serve_graph": _busy(lambda: server(w, micro_batch=MICRO))}
     for name, r in out.items():
         log(f"[graphs] (c) busy {name}: {r['device_ms']:.3f} ms of device "
             f"time in {r['kernels']} kernels, span {r['span_ms']:.3f} ms "
@@ -909,9 +913,9 @@ def _traced(fn) -> dict:
 
 def phase_steps(smi: str) -> dict:
     """fit's step and evaluation programs (loop.TrainStep, loop.Predictor)
-    graphed against eager, at batch 512 on the bench's seeded clips
-    (bench.noise(1024), labels alternating, cached features from
-    extract_features_batched), TPU_BREATH_PALLAS_GT unset (kernel B):
+    graphed against eager, at batch 512 on seeded clips (clips(1024),
+    labels alternating, cached features from extract_features_batched),
+    TPU_BREATH_PALLAS_GT unset (kernel B):
     (i) for CNN8 and VGG, cached and fused, two programs from one seeded
     state run 8 steps each, augmentation on, one eager (graphs.eager()) and
     one graphed: losses, accuracies, every parameter and buffer, both
@@ -925,14 +929,14 @@ def phase_steps(smi: str) -> dict:
     eval batch 1,024, the tail padded) on the host clock, and each graph's
     capture seconds and pool bytes. Prints {"steps": ...}; returns the
     phase's launches."""
-    from tpu_breath_torch import bench, graphs
+    from tpu_breath_torch import graphs
     from tpu_breath_torch.features import extract_features_batched
     from tpu_breath_torch.train import loop
     from tpu_breath_torch.train.schedule import warmup_cosine
 
     t0 = time.perf_counter()
     reset_launches()
-    wavs = bench.noise(2 * STEP_BATCH)
+    wavs = clips(2 * STEP_BATCH)
     f, s = extract_features_batched(wavs, chunk=CHUNK)
     rng = np.random.default_rng(0)
     lr = warmup_cosine(1e-3, 100)
@@ -995,8 +999,8 @@ def phase_steps(smi: str) -> dict:
                         k["n"] += 1
                     with (contextlib.nullcontext() if graphed
                           else graphs.eager()):
-                        ms[graphed].append(cuda_ms(call, iters=STEPS,
-                                                   warmup=1))
+                        ms[graphed] += device_ms(call, "cuda", STEPS,
+                                                 warmup=1)
                         queue[graphed] += _queue_ms(call, 4)
                 with graphs.eager():
                     trace_e = _traced(lambda: se(data["rows"][0],
@@ -1054,7 +1058,6 @@ def _eval_times(model, data: dict, pools: list) -> dict:
     clock including its one wait, 5 calls a turn; the logits bit-equal."""
     from tpu_breath_torch import graphs
     from tpu_breath_torch.train import loop
-    from tpu_breath_torch.utils import path_times
 
     n = 256
     y = (np.arange(n) % 2).astype(np.float32)
@@ -1072,8 +1075,7 @@ def _eval_times(model, data: dict, pools: list) -> dict:
     times = {False: [], True: []}
     for g in (False, True, True, False):
         with contextlib.nullcontext() if g else graphs.eager():
-            times[g] += path_times.host_ms(lambda: loop.evaluate(predict, y),
-                                           5, 1, "cuda")
+            times[g] += host_ms(lambda: loop.evaluate(predict, y), 5, 1)
     graph = next(iter(predict.graphs.values()))
     pools.append({"graph": f"eval {type(model).__name__} B=1024",
                   "capture_s": graph.capture_s,
@@ -1232,7 +1234,7 @@ def phase_serve(tmp: str) -> dict:
     # bound: the card runs CNN8 under bf16 autocast, the CPU in f32
     log(f"[serve] probs {np.round(p_gpu, 4).tolist()}; |gpu (bf16) - cpu "
         f"(f32)| max {gap:.3g} (bound 2e-2)")
-    return {"launches": launches, "ckpt": ckpt, "wavs": wavs}
+    return {"launches": launches}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1529,9 +1531,13 @@ def phase_e2e(tmp: str, test_paths: list[str]) -> dict:
         f"alone {after_pre}; resumed epochs {res['resumed_epochs']}; "
         f"ensemble on {len(served)} test clips: |gpu (bf16) - cpu (f32)| "
         f"{gap:.3g}, |from wav - from cache| {gap_wav:.3g} (bounds 2e-2)")
+    log(f"[e2e] train cnn8,vgg 6 epochs + predict: {res['train_s']:.2f} s")
     for arch in ("cnn8", "vgg"):
         log(f"[e2e] {arch} val acc by epoch "
-            f"{[round(r['val_acc'], 4) for r in res[arch]]}")
+            f"{[round(r['val_acc'], 4) for r in res[arch]]}; epoch wall time "
+            f"(2 steps + val of 256) median "
+            f"{np.median([r['sec'] for r in res[arch][1:]]):.3f} s, epochs "
+            f"2-6")
     return res
 
 
@@ -1709,54 +1715,6 @@ def phase_repro(tmp: str, e2e: dict) -> dict:
     return {"launches": launches}
 
 
-def scope_cost(smi: str) -> None:
-    """What fit's reproducible scope costs a step, on the bench's split
-    (bench.split_pieces) at batch 512 on bench.noise clips, CNN8 and VGG:
-    fwd, grad (fwd + bwd), the cached and the fused step, each ms a launch
-    by CUDA events (bench.event_ms: mean of 8 launches, 3 rounds), timed
-    without the scope and with it in turns (without, with, with, without).
-    Printed as {"scope_cost": ...}: per piece the medians, on / off and
-    the runs; bwd = grad - fwd. Measures; checks nothing."""
-    from tpu_breath_torch import bench
-    from tpu_breath_torch.config import CNN8_TRAIN, DEFAULT_FEATURES, VGG_TRAIN
-    from tpu_breath_torch.models import registry
-    from tpu_breath_torch.train import loop
-
-    t0 = time.perf_counter()
-    dev = torch.device("cuda")
-    b, names = bench.TRAIN_BATCH, ("fwd", "grad", "cached", "fused")
-    w = torch.from_numpy(bench.noise(b)).to(dev)
-    y = (torch.arange(b, device=dev) % 2).float()
-    res = {"device": smi, "batch": b}
-    for arch, cfg in (("cnn8", CNN8_TRAIN), ("vgg", VGG_TRAIN)):
-        cfg = dataclasses.replace(cfg, batch_size=b)
-        model = registry.build(arch, DEFAULT_FEATURES.n_scalars).to(dev)
-        pieces = bench.split_pieces(
-            model, loop.make_optimizer(model, cfg), cfg, DEFAULT_FEATURES,
-            w, y, 1e-4, torch.Generator(device=dev).manual_seed(1))
-        model.train()
-        runs = {k: {"off": [], "on": []} for k in names}
-        for on in (False, True, True, False):
-            with loop.reproducible() if on else contextlib.nullcontext():
-                for k in names:
-                    runs[k]["on" if on else "off"] += bench.event_ms(
-                        pieces[k], bench.TRAIN_STEPS, bench.SPLIT_ROUNDS,
-                        dev)
-        med = {k: {s: float(np.median(r[s])) for s in r}
-               for k, r in runs.items()}
-        med["bwd"] = {s: med["grad"][s] - med["fwd"][s] for s in ("off", "on")}
-        res[arch] = {k: {"off_ms": m["off"], "on_ms": m["on"],
-                         "on_over_off": m["on"] / m["off"],
-                         **({"runs": runs[k]} if k in runs else {})}
-                     for k, m in med.items()}
-        log(f"[repro] scope cost, {arch} batch {b} (ms, without -> with): "
-            + "; ".join(f"{k} {m['off']:.2f} -> {m['on']:.2f}"
-                        for k, m in med.items()) + f" ({smi})")
-        del model, pieces
-    res["seconds"] = time.perf_counter() - t0
-    print(json.dumps({"scope_cost": res}), flush=True)
-
-
 @contextlib.contextmanager
 def gt_switch():
     """TPU_BREATH_PALLAS_GT=1 (kernel B'', the features of the cache)
@@ -1830,7 +1788,9 @@ def phase_fused(tmp: str) -> dict:
         res[arch] = hf
         log(f"[fused] {arch} train loss by epoch "
             f"{[round(r['train_loss'], 6) for r in hf]}, val acc "
-            f"{[round(r['val_acc'], 4) for r in hf]}")
+            f"{[round(r['val_acc'], 4) for r in hf]}; epoch wall time "
+            f"median {np.median([r['sec'] for r in hf[1:]]):.3f} s, epochs "
+            f"2-6")
     # bound 0: equal features, fit's reproducible scope, and every other
     # draw the cached run's
     log(f"[fused] fused vs cached history, max |diff|: train_loss "
@@ -2045,25 +2005,23 @@ def _drive_stream(step, arrays: tuple, data: dict, steps: int, seed: int
 def _stream_ms(step, arrays: tuple, data: dict, seed: int
                ) -> tuple[float, list]:
     """ms a step by CUDA events over STEPS streamed steps (the loader's
-    host gather and hand-over included, as fit runs them), and the host's
-    ms to issue each step's call."""
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    host gather and hand-over included, as fit runs them: the loop is one
+    device_ms launch), and the host's ms to issue each step's call."""
     issue = []
-    torch.cuda.synchronize()
-    start.record()
-    for s, batch in enumerate(_stream(arrays, STEPS, seed)):
-        t0 = time.perf_counter()
-        step(*batch, data["lrs"][s], data["on"])
-        issue.append((time.perf_counter() - t0) * 1e3)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / STEPS, issue
+
+    def steps():
+        for s, batch in enumerate(_stream(arrays, STEPS, seed)):
+            t0 = time.perf_counter()
+            step(*batch, data["lrs"][s], data["on"])
+            issue.append((time.perf_counter() - t0) * 1e3)
+    ms, = device_ms(steps, "cuda")
+    return ms / STEPS, issue
 
 
 def mesh_steps(mesh, smi: str) -> dict:
     """(i) a: the streamed step programs (loop.TrainStep, data None) on one
-    NCCL rank, graphed against eager (graphs.eager()), batch 512 on the
-    bench's seeded clips streamed from the host: for CNN8 and VGG, cached
+    NCCL rank, graphed against eager (graphs.eager()), batch 512 on
+    seeded clips streamed from the host: for CNN8 and VGG, cached
     and fused (kernel B), two programs from one seeded state run 8 steps
     each on the same batches, augmentation on: losses, accuracies, every
     parameter and buffer, both moments and the step count bit-equal, the
@@ -2071,12 +2029,12 @@ def mesh_steps(mesh, smi: str) -> dict:
     fused, in turns (eager, graph, graph, eager): ms a step (CUDA events
     over 8 streamed steps, the loader included), the host's ms to issue a
     step's call, one traced step (kernels, host launches, busy share)."""
-    from tpu_breath_torch import bench, graphs
+    from tpu_breath_torch import graphs
     from tpu_breath_torch.features import extract_features_batched
     from tpu_breath_torch.train import loop
     from tpu_breath_torch.train.schedule import warmup_cosine
 
-    wavs = bench.noise(2 * STEP_BATCH)
+    wavs = clips(2 * STEP_BATCH)
     f, s = extract_features_batched(wavs, chunk=CHUNK)
     labels = np.tile(np.float32([0.0, 1.0]), STEP_BATCH)
     lr = warmup_cosine(1e-3, 100)
@@ -2582,63 +2540,6 @@ def phase_profile(tmp: str) -> None:
             raise AssertionError(f"kernel {k} is not in the replayed steps")
 
 
-def phase_bench(smi: str) -> dict:
-    """The port's bench (tpu_breath_torch/bench.py) at its defaults, in
-    this process: its line printed as {"bench": ...}. Fails unless every
-    rate and latency is finite and positive, every MFU lies in (0, 1], the
-    fused step's clips/s is at most the feature graph's alone (it does
-    strictly more a clip), and A, C, E and B or B'' launched on its path.
-    Returns the phase's launches."""
-    from tpu_breath_torch import bench
-
-    reset_launches()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()):  # the line, printed below
-        line = bench.main([])
-    seconds = time.perf_counter() - t0
-    launches = read_launches()
-    print(json.dumps({"bench": line}), flush=True)
-    split = line["split"]
-    rates = {k: line[k] for k in ("value", "feature_only_clips_per_s",
-                                  "vgg_fused_clips_per_s",
-                                  "cpu_oracle_clips_per_s")}
-    rates.update({f"serve B={b} {q}": v[q]
-                  for b, v in line["serve_ms"].items()
-                  for q in ("median", "p90")})
-    rates.update({f"{arch} {name} {k}": row[k]
-                  for arch, pieces in split.items()
-                  for name, row in pieces.items()
-                  if isinstance(row, dict) and "mfu" in row
-                  for k in ("ms", "clips_per_s")})
-    rates.update({f"{arch} cached B={b}": row["ms"]
-                  for arch, pieces in split.items()
-                  for b, row in pieces["cached_batch_sweep"].items()})
-    mfus = {k: line[k] for k in ("feature_mfu", "fused_train_mfu",
-                                 "vgg_fused_train_mfu")}
-    mfus.update({f"{arch} {name}": row["mfu"]
-                 for arch, pieces in split.items()
-                 for name, row in pieces.items()
-                 if isinstance(row, dict) and "mfu" in row})
-    log(f"[bench] bench.main at its defaults: {seconds:.1f} s; value "
-        f"{line['value']:.1f} clips/s, feature only "
-        f"{line['feature_only_clips_per_s']:.1f}, serve B=8 median "
-        f"{line['serve_ms']['8']['median']:.2f} ms; launches {launches}; "
-        f"{smi}")
-    bad = [k for k, v in rates.items()
-           if v is None or not (np.isfinite(v) and v > 0)]
-    bad += [k for k, v in mfus.items()
-            if v is None or not (np.isfinite(v) and 0 < v <= 1)]
-    if bad:
-        raise AssertionError(f"bench: out of range: {bad}")
-    if not line["value"] <= line["feature_only_clips_per_s"]:
-        raise AssertionError(f"bench: fused {line['value']} clips/s above "
-                             f"the features alone")
-    if min(launches["A"], launches["C"], launches["E"],
-           max(launches["B"], launches["B''"])) <= 0:
-        raise AssertionError(f"a kernel was not launched: {launches}")
-    return {"launches": launches}
-
-
 def quiet(fn, *args):
     """fn(*args) with its stdout captured; (result, captured text)."""
     out = io.StringIO()
@@ -2651,10 +2552,9 @@ def phase_tools(tmp: str, smi: str) -> dict:
     """The port's tools (tpu_breath_torch/utils) on the card: (a) the
     feature roofline at its defaults, its report printed as {"roofline":
     ...}: every share in (0, 1.05] (a FLOP share exactly 0 where a stage
-    counts no FLOPs), every bound one of the three, `full`'s FLOPs
-    bench.feature_flops(128), each stage's bytes and kernel calls at B = 8
-    the same counted on the card as on the CPU, A, C, E and B or B''
-    launched;
+    counts no FLOPs), every bound one of the three, each stage's bytes and
+    kernel calls at B = 8 the same counted on the card as on the CPU, A,
+    C, E and B or B'' launched;
     (b) seed_sweep (cnn8, seeds 0 and 1, cached and fused, 2 epochs) on
     phase 6's dataset, then summarize on its directory: the two summaries
     agree on every key both hold; (c) ensemble_val on phase 6's CNN8 and
@@ -2663,7 +2563,7 @@ def phase_tools(tmp: str, smi: str) -> dict:
     parity sweep (64 seeded clips, 16 through the oracle) by --deviations,
     inside the envelope; (e) find_flips on the parity phase's 512 clips:
     the flip count, and each flip's diagnose(). Returns the launches."""
-    from tpu_breath_torch import bench, cli
+    from tpu_breath_torch import cli
     from tpu_breath_torch.train import checkpoint as ckpt_lib
     from tpu_breath_torch.utils import (deviation_sweep, ensemble_val,
                                         feature_roofline, flip_hunt,
@@ -2686,11 +2586,7 @@ def phase_tools(tmp: str, smi: str) -> dict:
                                           and row[k] == 0))]
     bad += [(name, "bound", row["bound"]) for name, row in stages.items()
             if row["bound"] not in feature_roofline.BOUNDS]
-    want = bench.feature_flops(report["chunk"])
-    if stages["full"]["flops_per_chunk"] != want:
-        bad.append(("full", "flops_per_chunk",
-                    (stages["full"]["flops_per_chunk"], want)))
-    y = torch.from_numpy(bench.noise(MICRO))
+    y = torch.from_numpy(clips(MICRO))
     for name, fn in profiling.feature_stages().items():
         on_card, on_cpu = (feature_roofline.count(fn, v)
                            for v in (y.cuda(), y))
@@ -2703,9 +2599,8 @@ def phase_tools(tmp: str, smi: str) -> dict:
         + "; ".join(f"{n} {r['wall_ms']:.2f} ms, flop {r['flop_frac']:.3g},"
                     f" op traffic {r['hbm_frac']:.3g}, {r['bound']}"
                     for n, r in stages.items())
-        + f"; full's FLOPs a chunk = bench.feature_flops({report['chunk']})"
-        f" = {want}; bytes and kernel calls at B = {MICRO} the same on the "
-        f"card as on the CPU; {times['roofline']:.1f} s")
+        + f"; bytes and kernel calls at B = {MICRO} the same on the card as "
+        f"on the CPU; {times['roofline']:.1f} s")
     if bad:
         raise AssertionError(f"roofline out of range: {bad}")
     if min(launches["A"], launches["C"], launches["E"],
@@ -2798,54 +2693,6 @@ def phase_tools(tmp: str, smi: str) -> dict:
     return {"launches": launches, "seconds": seconds}
 
 
-def phase_times(serve: dict, e2e: dict, fused: dict, steps: dict) -> None:
-    from tpu_breath_torch import ensemble
-    from tpu_breath_torch.features import extract_features
-    from tpu_breath_torch.utils import path_times
-
-    for b in (MICRO, CHUNK):
-        y = torch.from_numpy(clip_set(b, seed=b)).cuda()
-        # alternating order: default (B), fused (B''), fused, default
-        ms = [cuda_ms(lambda: extract_features(y, fused_gt=fused), iters=5,
-                      warmup=2) for fused in (False, True, True, False)]
-        log(f"[time] extract_features B={b}: {ms[0]:.3f} ms "
-            f"({ms[0] / b:.3f} ms/clip); default, fused_gt, fused_gt, "
-            f"default: {', '.join(f'{m:.3f}' for m in ms)} ms")
-    wavs = serve["wavs"][:MICRO]
-    ensemble.serve_from_wav([serve["ckpt"]], ["cnn8"], [0.78], wavs,
-                            device="cuda")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ensemble.serve_from_wav([serve["ckpt"]], ["cnn8"], [0.78], wavs,
-                            device="cuda")
-    torch.cuda.synchronize()
-    log(f"[time] serve_from_wav one micro-batch of {MICRO} (host clock, "
-        f"model load included): {(time.perf_counter() - t0) * 1e3:.2f} ms")
-    ms = path_times.serve_ms("cuda", reps=40, micro=MICRO)
-    log(f"[time] serve, one micro-batch of {MICRO} wav -> probabilities, "
-        f"CNN8 built once (utils/path_times.py, host clock, 40 calls): "
-        f"median {np.median(ms):.2f} ms, p90 {np.percentile(ms, 90):.2f} ms")
-
-    # the train steps: the step programs as fit runs them (phase_steps'
-    # CUDA-event times at batch 512, graphed, augmentation on), beside the
-    # epochs of the CLI runs
-    for arch in STEP_KEYS:
-        ms = {m: steps["ms"][f"{arch} {m}"]["graph"]["median"]
-              for m in ("cached", "fused")}
-        secs = [r["sec"] for r in e2e[arch][1:]]
-        fsecs = [r["sec"] for r in fused[arch][1:]]
-        log(f"[time] {arch} train step, batch {STEP_BATCH}, one replay "
-            f"(CUDA events, phase steps): cached {ms['cached']:.2f} ms, "
-            f"fused {ms['fused']:.2f} ms (kernel B); epoch wall time (2 "
-            f"steps + val of 256) median {np.median(secs):.3f} s cached, "
-            f"{np.median(fsecs):.3f} s fused (B''), epochs 2-6")
-    log(f"[time] precompute, 1,536 clips (TPU_BREATH_PALLAS_GT=1): "
-        f"{e2e['decode_line']}; {e2e['precompute_line']}; whole command "
-        f"{e2e['precompute_s']:.2f} "
-        f"s with decode; train cnn8,vgg 6 epochs + predict "
-        f"{e2e['train_s']:.2f} s")
-
-
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cards", type=int, default=0, metavar="N",
@@ -2875,13 +2722,10 @@ def main(argv: list[str] | None = None) -> int:
         serve = phase_serve(tmp)
         e2e = phase_e2e(tmp, phase_decode(tmp, env["smi"]))
         repro = phase_repro(tmp, e2e)
-        scope_cost(env["smi"])
         fused = phase_fused(tmp)
         mesh = phase_mesh(tmp, env["smi"])
         phase_profile(tmp)
-        bench = phase_bench(env["smi"])
         tools = phase_tools(tmp, env["smi"])
-        phase_times(serve, e2e, fused, steps)
     src = "tpu_breath_torch/csrc"
     pallas = "tpu_breath/ops/pallas"
     table = [
@@ -2903,14 +2747,14 @@ def main(argv: list[str] | None = None) -> int:
     paths = {"steps": steps["launches"], "serve": serve["launches"],
              "e2e": e2e["launches"], "repro": repro["launches"],
              "fused": fused["launches"], "mesh": mesh["launches"],
-             "parity": parity["launches"], "bench": bench["launches"],
-             "tools": tools["launches"]}
+             "parity": parity["launches"], "tools": tools["launches"]}
     kernels = [{"name": name, "route": "cuda", "source": f"{src}/{f}",
                 "replaces": rep and f"{pallas}/{rep}",
                 "launches": sum(p[k] for p in paths.values()),
                 "launches_by_path": {n: p[k] for n, p in paths.items()},
-                "max_abs_err": ker[k]["err"], "ms": ker[k][CHUNK][0],
-                "plain_ms": ker[k][CHUNK][1], "primed_ms": ker[k][CHUNK][2],
+                "max_abs_err": ker[k]["err"], "ms": ker[k][CHUNK]["ms"],
+                "plain_ms": ker[k][CHUNK]["plain_ms"],
+                "primed_ms": ker[k][CHUNK]["primed_ms"],
                 "bound_ms": ker["bound", CHUNK][k][0],
                 "bound_by": ker["bound", CHUNK][k][1],
                 "library_ms": ker.get(("D", "library", CHUNK)) if k == "D"

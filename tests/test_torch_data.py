@@ -201,6 +201,21 @@ def test_cache_round_trip_and_stamp(store, tmp_path):
     assert not ds.FeatureStore.cache_exists(cache)
 
 
+@pytest.mark.parametrize("stamp", ["missing", "other"])
+def test_load_cache_refuses_a_cache_of_other_numerics(store, tmp_path, stamp):
+    """load_cache reads meta.json as cache_exists does: a cache without the
+    port's stamp (none, or the JAX package's own) raises, never loads."""
+    cache = str(tmp_path / "cache")
+    if stamp == "other":
+        jx_ds.FeatureStore(store.ids, store.features, store.scalars
+                           ).save_cache(cache)
+    else:
+        store.save_cache(cache)
+        os.remove(os.path.join(cache, "meta.json"))
+    with pytest.raises(ValueError, match="numeric_version"):
+        ds.FeatureStore.load_cache(cache)
+
+
 def test_npz_round_trip_and_jax_interop(store, tmp_path):
     """Per-clip npz files written by the port read back equal, by the port
     and by the JAX package (channels in sorted-key order)."""

@@ -44,8 +44,7 @@ MODULES = {
     "ops.rhythm", "ops.scalars", "ops.select", "ops.spectral",
     "parallel", "parallel.mesh", "data.loader", "train",
     "train.checkpoint", "train.loop", "train.metrics", "train.schedule",
-    "bench", "utils", "utils.gammatone_breakdown", "utils.kernel_times",
-    "utils.parity_sweep", "utils.path_times", "utils.profiling",
+    "utils", "utils.kernel_times", "utils.parity_sweep", "utils.profiling",
     "utils.feature_roofline", "utils.seed_sweep", "utils.ensemble_val",
     "utils.deviation_sweep", "utils.flip_hunt", "utils.sdpa_times",
 }

@@ -3,9 +3,11 @@
 names (stft512_dd aside: the port has no double-float path), `train
 --profile DIR` writes a torch.profiler trace, the table of its top
 operations and train_profile.json. On the CPU the times come from the
-host clock, and the JSON says so. utils/path_times.py, the wall times of
-the serving and precompute paths, runs at a tiny size too."""
+host clock, and the JSON says so. The port's one timer, profiling.device_ms,
+on the CPU: the calls it makes and the values it returns."""
 import json
+import math
+import time
 import wave
 
 import numpy as np
@@ -13,7 +15,7 @@ import pytest
 
 from tpu_breath.utils import profiling as jx_profiling
 from tpu_breath_torch import cli
-from tpu_breath_torch.utils import path_times, profiling
+from tpu_breath_torch.utils import profiling
 
 N_TRAIN, N_TEST = 10, 2
 
@@ -97,17 +99,21 @@ def test_train_profile_of_histories(tmp_path):
             "warm_epoch_median_s": 1.5}
 
 
-def test_path_times_reports_the_serve_feature_and_precompute_times():
-    res = path_times.measure("cpu", reps=3, iters=2, batches=(2,),
-                             n_clips=3, runs=2, micro=2, warmup=0)
-    assert res["device"] == "cpu"
-    assert res["serve_ms"]["n"] == 3 and res["serve_ms"]["micro_batch"] == 2
-    assert 0 < res["serve_ms"]["median"] <= res["serve_ms"]["p90"]
-    assert 0 < res["serve_ms"]["model_median"] < res["serve_ms"]["median"]
-    assert set(res["extract_features_ms"]) == {"2"}
-    assert res["extract_features_ms"]["2"]["median"] > 0
-    pre = res["precompute"]
-    assert pre["clips"] == 3 and len(pre["runs"]) == 2
-    assert pre["clips_per_s"] == pytest.approx(float(np.median(pre["runs"])))
-    # chip_smoke calls serve_ms with the device's name
-    assert len(path_times.serve_ms("cpu", reps=1, micro=2, warmup=0)) == 1
+# (launches, rounds, warm-up): the kernel table's; eight launches in three
+# rounds; the stage profile's
+@pytest.mark.parametrize("launches, rounds, warmup",
+                         [(20, 1, 3), (8, 3, 1), (1, 1, 0)],
+                         ids=["kernel_table", "rounds", "stage_profile"])
+def test_device_ms_calls_fn_warmup_plus_launches_times_rounds(
+        launches, rounds, warmup):
+    calls = []
+
+    def fn():
+        calls.append(1)
+        time.sleep(1e-3)
+
+    ms = profiling.device_ms(fn, "cpu", launches, rounds, warmup)
+    assert len(calls) == warmup + launches * rounds
+    # one value a round, ms a launch: each launch sleeps at least 1 ms
+    assert len(ms) == rounds
+    assert all(math.isfinite(m) and m >= 1.0 for m in ms)

@@ -1,27 +1,37 @@
 """The port's tools (tpu_breath_torch/utils: feature_roofline, seed_sweep,
 ensemble_val, deviation_sweep, flip_hunt, and parity_sweep's
 --deviations) on the CPU at a small size, each held against its JAX tool
-(tools/*.py, imported by file path) on the same inputs; the kernels' work
-model (ops/cuda/work.py) against the kernel table's bounds; and no tool's
+(tools/*.py, imported by file path) on the same inputs; the roofline's
+FLOP count (the FFT formulas, the feature count's linearity in the batch
+and its independence of the gammatone route, the models' forward against
+XLA's cost_analysis of the Flax models); the kernels' work model
+(ops/cuda/work.py) against the kernel table's bounds; and no tool's
 default names a path the repository holds."""
 import glob
 import importlib.util
 import json
+import math
 import os
 import shutil
 import sys
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import scipy.signal
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 import chip_smoke
 from tpu_breath import ensemble as jx_ensemble
 from tpu_breath.baseline import dsp_np as jx_dsp
+from tpu_breath.models.cnn8 import CNN8 as FlaxCNN8
+from tpu_breath.models.vgg import VGG as FlaxVGG
 from tpu_breath.train.metrics import binary_metrics as jx_metrics
 from tpu_breath.utils import profiling as jx_profiling
-from tpu_breath_torch import bench
+from tpu_breath_torch.models import registry
+from tpu_breath_torch.models.convert import FROM_FLAX
 from tpu_breath_torch.ops.cuda import (epilogue_kernel, gammatone_kernel,
                                        lpc_kernel, peaks_kernel, tuning_kernel,
                                        work)
@@ -337,7 +347,7 @@ def test_cpu_roofline_records_the_host_clock_and_no_share(roofline):
     assert (roofline["timer"], roofline["device"]) == ("host clock", "cpu")
     assert (roofline["n_clips"], roofline["chunk"]) == (16, 8)
     assert roofline["inputs"].startswith("seeded noise")
-    assert roofline["peak_flops"] == bench.PEAK_FLOPS == 989e12
+    assert roofline["peak_flops"] == feature_roofline.PEAK_FLOPS == 989e12
     assert roofline["peak_hbm_bytes_s"] == work.HBM_BPS == 3.35e12
     assert set(roofline["stages"]) == set(profiling.feature_stages())
     for name, row in roofline["stages"].items():
@@ -349,7 +359,7 @@ def test_cpu_roofline_records_the_host_clock_and_no_share(roofline):
 
 def test_roofline_full_counts_the_bench_flops_and_the_path_kernels(roofline):
     full = roofline["stages"]["full"]
-    assert full["flops_per_chunk"] == bench.feature_flops(8)
+    assert full["flops_per_chunk"] == feature_roofline.feature_flops(8)
     assert full["kernel_calls_per_chunk"] == {"A": 2, "B": 1, "C": 1,
                                               "E": 1}
     calls = {k: v["kernel_calls_per_chunk"]
@@ -357,6 +367,74 @@ def test_roofline_full_counts_the_bench_flops_and_the_path_kernels(roofline):
     assert calls["tuning36"] == {"A": 1} and calls["find_peaks"] == {"C": 1}
     assert calls["lpc"] == {"E": 1}
     assert calls["chroma_stft"] == {"A": 1} and calls["scalars"] == {"C": 1}
+
+
+@pytest.mark.parametrize("n", [8, 512, 2048])
+def test_fft_flops_are_n_log2_n_formulas(n):
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal((3, n)))
+    xc = torch.complex(x, x.flip(-1))
+    count = feature_roofline.counted_flops
+    assert count(lambda: torch.fft.fft(xc)) == 3 * 5 * n * math.log2(n)
+    assert count(lambda: torch.fft.rfft(x)) == 3 * 2.5 * n * math.log2(n)
+    half = torch.fft.rfft(x)
+    assert count(lambda: torch.fft.irfft(half, n)) == (
+        3 * 2.5 * n * math.log2(n))
+
+
+def test_feature_flops_are_linear_in_b_and_route_free(monkeypatch):
+    """Counted on kernel B's route whatever TPU_BREATH_PALLAS_GT says, so
+    the count is a function of the shapes alone."""
+    at4 = feature_roofline.feature_flops(4)
+    assert feature_roofline.feature_flops(8) == 2 * at4
+    monkeypatch.setenv("TPU_BREATH_PALLAS_GT", "1")
+    assert feature_roofline.feature_flops(4) == at4
+
+
+def _valid_tap_conv(x, w, bias, stride, padding, dilation, transposed,
+                    output_padding, groups, out_shape=None):
+    """2 x the multiply-adds of a stride-1 convolution whose kernel taps
+    land inside the input (padding taps not counted, as XLA counts)."""
+    taps = 1
+    for size, k, p, o in zip(x[2:], w[2:], padding, out_shape[2:]):
+        taps *= sum(0 <= j - p + t < size for j in range(o)
+                    for t in range(k))
+    return 2 * x[0] * w[0] * (x[1] // groups) * taps
+
+
+@pytest.mark.parametrize("arch,flax_cls", [("cnn8", FlaxCNN8),
+                                           ("vgg", FlaxVGG)])
+def test_forward_flops_against_xla_cost_analysis(arch, flax_cls):
+    """The roofline's count of a forward at batch 2 against XLA's
+    cost_analysis of the Flax model's forward, the weights carried across
+    by models/convert.py. FlopCounterMode counts every tap of a padded
+    convolution, XLA only the taps inside the input, and XLA adds the
+    elementwise work. Measured: port / XLA 1.0496 (CNN8), 1.0320 (VGG);
+    XLA / the port's inside taps 1.0031, 1.0335."""
+    rng = np.random.default_rng(0)
+    f = rng.standard_normal((2, 9, 128, 63)).astype(np.float32)
+    s = rng.standard_normal((2, 36)).astype(np.float32)
+    flax_model = flax_cls(num_scalar_features=36, dtype=jnp.float32)
+    v = jax.jit(lambda f, s: flax_model.init(
+        {"params": jax.random.PRNGKey(0)}, f, s, train=False))(f, s)
+    cost = jax.jit(lambda v, f, s: flax_model.apply(
+        v, f, s, train=False)).lower(v, f, s).compile().cost_analysis()
+    xla = float((cost[0] if isinstance(cost, list) else cost)["flops"])
+
+    model = registry.build(arch, 36)
+    model.load_state_dict(FROM_FLAX[arch](
+        jax.tree.map(np.asarray, v["params"]),
+        jax.tree.map(np.asarray, v["batch_stats"])))
+    model.eval()
+    ft, st = torch.from_numpy(f), torch.from_numpy(s)
+    with torch.no_grad():
+        port = feature_roofline.counted_flops(lambda: model(ft, st))
+        inside = FlopCounterMode(
+            display=False,
+            custom_mapping={torch.ops.aten.convolution: _valid_tap_conv})
+        with inside:
+            model(ft, st)
+    assert 1.0 < port / xla < 1.06
+    assert 1.0 < xla / inside.get_total_flops() < 1.04
 
 
 # ---- ensemble validation

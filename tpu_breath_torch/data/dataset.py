@@ -103,6 +103,14 @@ class FeatureStore:
 
     @classmethod
     def load_cache(cls, cache_dir: str, mmap: bool = True) -> "FeatureStore":
+        """The cache under cache_dir; raises ValueError unless meta.json
+        stamps it with this port's FEATURE_NUMERIC_VERSION (a cache of
+        other numerics is never read)."""
+        stamp = cls._stamp(cache_dir)
+        if stamp != FEATURE_NUMERIC_VERSION:
+            raise ValueError(f"feature cache {cache_dir}: numeric_version "
+                             f"{stamp!r}, not {FEATURE_NUMERIC_VERSION!r}; "
+                             f"run precompute again")
         mode = "r" if mmap else None
         feats = np.load(os.path.join(cache_dir, "features.npy"),
                         mmap_mode=mode)
@@ -112,19 +120,22 @@ class FeatureStore:
             ids = f.read().splitlines()
         return cls(ids, feats, scals)
 
+    @staticmethod
+    def _stamp(cache_dir: str):
+        """meta.json's numeric_version, None without a readable meta.json."""
+        try:
+            with open(os.path.join(cache_dir, "meta.json")) as f:
+                return json.load(f).get("numeric_version")
+        except (OSError, ValueError):
+            return None
+
     @classmethod
     def cache_exists(cls, cache_dir: str) -> bool:
         """True only for a complete cache stamped with this port's
         FEATURE_NUMERIC_VERSION; a missing or other stamp reads as absent."""
-        if not all(os.path.exists(os.path.join(cache_dir, n))
-                   for n in CACHE_FILES):
-            return False
-        try:
-            with open(os.path.join(cache_dir, "meta.json")) as f:
-                meta = json.load(f)
-        except (OSError, ValueError):
-            return False
-        return meta.get("numeric_version") == FEATURE_NUMERIC_VERSION
+        return (all(os.path.exists(os.path.join(cache_dir, n))
+                    for n in CACHE_FILES)
+                and cls._stamp(cache_dir) == FEATURE_NUMERIC_VERSION)
 
     # npz parity mode
 

@@ -17,7 +17,7 @@ the recorded counts on every replay.
 
 There is no fallback: on the card a capture or a replay that fails raises.
 The only way to run a program's eager body on the card is eager(), the
-comparison side for the tests, chip_smoke and the bench.
+comparison side for the tests and chip_smoke.
 """
 from __future__ import annotations
 

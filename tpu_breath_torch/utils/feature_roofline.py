@@ -5,16 +5,18 @@ what bounds it.
 
 For each stage:
 - wall_ms: all chunks of --chunk clips, one stage call a chunk, by CUDA
-  events (profiling._elapsed_ms; the host clock on the CPU), the median of
+  events (profiling.device_ms; the host clock on the CPU), the median of
   3 runs after one warm-up run, under spectral.full_f32() as the feature
   graph runs; eagerly, op by op, not as precompute's captured graph
   (features.extract_features_compiled), since a graph replays the whole
   stack and hides its stages;
-- gflops: bench.counted_flops (convolutions, mm, bmm, FFTs; no elementwise
-  work) of one chunk on the CPU plain path, kernel B's route whatever
-  TPU_BREATH_PALLAS_GT says, times the chunks: `full` at B = 8 is
-  bench.feature_flops(8), so the roofline and the bench's feature_mfu share
-  one count;
+- gflops: counted_flops (COUNTED: convolutions, mm and bmm by
+  torch.utils.flop_counter, FFTs at 5 n log2 n a complex transform and
+  2.5 n log2 n a real one; no elementwise work) of one chunk on the CPU
+  plain path, kernel B's route whatever TPU_BREATH_PALLAS_GT says, times
+  the chunks: `full` at B = 8 is feature_flops(8). The CUDA kernels are
+  called through ctypes, out of a counter's sight, so counting the plain
+  path makes the count the same whichever route runs on the card;
 - gbytes_accessed: of the same chunk in the same pass, the bytes each
   dispatched aten op reads and writes (each tensor argument read once, each
   tensor result written once; the destination of copy_, fill_ and zero_
@@ -25,7 +27,7 @@ For each stage:
   steps; the count is the same on the CPU and on the card. It is the ops'
   own traffic, not measured DRAM bytes: an operand that L2 serves counts
   all the same;
-- flop_frac: achieved FLOP/s over bench.PEAK_FLOPS (989 TFLOP/s bf16, the
+- flop_frac: achieved FLOP/s over PEAK_FLOPS (989 TFLOP/s bf16, the
   JAX tool's peak kind); the graph runs in f32 and f64, whose peak
   (work.F32_FLOPS) is 15x lower, so "compute-bound" cannot fire on it;
   hbm_frac: the op-traffic share, achieved op bytes/s over work.HBM_BPS
@@ -39,9 +41,10 @@ device metric.
     python -m tpu_breath_torch.utils.feature_roofline [--n 2048]
         [--chunk 128] [--root input] [--device cuda] [--out PATH]
 
-Inputs: the dataset's clips under --root, repeated to --n, when it holds
-one, else bench.noise (seeded, default_rng(0) x 0.05). Prints the report
-as JSON and writes it to --out when given.
+Inputs: the dataset's clips under --root, decoded as precompute decodes
+them and repeated to --n, when it holds one, else noise (seeded,
+default_rng(0) x 0.05); the report's `inputs` says which. Prints the
+report as JSON and writes it to --out when given.
 """
 from __future__ import annotations
 
@@ -49,6 +52,7 @@ import argparse
 import collections
 import contextlib
 import json
+import math
 import os
 import sys
 
@@ -56,9 +60,11 @@ import numpy as np
 import torch
 from torch.utils import _pytree
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import FlopCounterMode
 
-from tpu_breath_torch import bench
+from tpu_breath_torch.config import DEFAULT_FEATURES, Paths
 from tpu_breath_torch.device import resolve_device
+from tpu_breath_torch.features import extract_features
 from tpu_breath_torch.ops import spectral
 from tpu_breath_torch.ops.cuda import (epilogue_kernel, gammatone_kernel,
                                        lpc_kernel, peaks_kernel, tuning_kernel,
@@ -68,6 +74,12 @@ from tpu_breath_torch.utils import parity_sweep, profiling
 N_CLIPS = 2048
 CHUNK = 128
 RUNS = 3
+PEAK_FLOPS = 989e12
+PEAK_SOURCE = ("NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak, no "
+               "sparsity, at 700 W")
+COUNTED = ("convolutions, mm and bmm (forward and backward) by "
+           "torch.utils.flop_counter; FFTs at 5 n log2 n (c2c) and 2.5 n "
+           "log2 n (r2c, c2r) a transform; elementwise work not counted")
 # a stage is compute-bound above this share of the peak FLOP/s,
 # bandwidth-bound above it of the peak bytes/s, latency/serial-bound else
 BOUND_SHARE = 0.30
@@ -111,6 +123,62 @@ KERNELS = {
         lambda y_emph, window, hop, n_frames, order: (
             "E", work.lpc(*y_emph.shape, window.shape[0], n_frames, order)),
 }
+
+
+def noise(n: int) -> np.ndarray:
+    """Seeded clips [n, 16000] f32: default_rng(0).standard_normal * 0.05."""
+    rng = np.random.default_rng(0)
+    return (rng.standard_normal((n, DEFAULT_FEATURES.expected_len)) * 0.05
+            ).astype(np.float32)
+
+
+def load_clips(n: int, root: str) -> tuple[np.ndarray, str]:
+    """n clips [n, 16000] f32 and what they are (see the module
+    docstring)."""
+    if os.path.exists(Paths(root=root).train_csv):
+        wavs, ids = parity_sweep.dataset_clips(root)
+        return (wavs[np.arange(n) % len(wavs)],
+                f"dataset {root}: {len(ids)} wavs, repeated to {n}")
+    return noise(n), ("seeded noise: default_rng(0).standard_normal((n, "
+                      "16000)) * 0.05, f32")
+
+
+def _fft_c2c(x, dim, *_, out_shape=None, **__) -> float:
+    n = math.prod(x[d] for d in dim)
+    return 5 * math.prod(x) * math.log2(n)
+
+
+def _fft_r2c(x, dim, *_, out_shape=None, **__) -> float:
+    n = math.prod(x[d] for d in dim)
+    return 2.5 * math.prod(x) * math.log2(n)
+
+
+def _fft_c2r(x, dim, *_, out_shape=None, **__) -> float:
+    n = math.prod(out_shape[d] for d in dim)
+    return 2.5 * math.prod(out_shape) * math.log2(n)
+
+
+# FlopCounterMode wraps each formula itself: it gets the inputs' shapes, the
+# op's other arguments and out_shape; (numel / n) transforms of n points
+FFT_FLOPS = {torch.ops.aten._fft_c2c: _fft_c2c,
+             torch.ops.aten._fft_r2c: _fft_r2c,
+             torch.ops.aten._fft_c2r: _fft_c2r}
+
+
+def counted_flops(fn) -> float:
+    """The FLOPs FlopCounterMode counts in one call of fn (COUNTED)."""
+    with FlopCounterMode(display=False, custom_mapping=FFT_FLOPS) as fc:
+        fn()
+    return fc.get_total_flops()
+
+
+def feature_flops(b: int) -> float:
+    """extract_features' counted FLOPs at batch b on the CPU plain path,
+    kernel B's route (fused_gt=False) whatever TPU_BREATH_PALLAS_GT says: a
+    function of the shapes alone."""
+    y = torch.from_numpy(noise(b))
+    return counted_flops(lambda: extract_features(y, DEFAULT_FEATURES,
+                                                  fused_gt=False))
 
 
 def classify(flop_frac: float | None, hbm_frac: float | None) -> str:
@@ -198,7 +266,7 @@ def count(fn, y: torch.Tensor) -> dict:
         fn(y)
         counter = ByteCounter()
         with count_kernels(counter), counter:
-            flops = bench.counted_flops(lambda: fn(y))
+            flops = counted_flops(lambda: fn(y))
     return {"flops": flops, "bytes": counter.bytes,
             "kernel_calls": dict(counter.kernel_calls)}
 
@@ -211,9 +279,8 @@ def wall_ms(fn, chunks: torch.Tensor, device: torch.device) -> float:
         for c in chunks:
             fn(c)
     with spectral.full_f32():
-        run()
-        return float(np.median([profiling._elapsed_ms(run, device)
-                                for _ in range(RUNS)]))
+        return float(np.median(profiling.device_ms(run, device, rounds=RUNS,
+                                                   warmup=1)))
 
 
 def roofline(wavs: np.ndarray, chunk: int = CHUNK, device="cuda") -> dict:
@@ -234,7 +301,7 @@ def roofline(wavs: np.ndarray, chunk: int = CHUNK, device="cuda") -> dict:
         c = count(fn, x[:chunk])
         ms = wall_ms(fn, chunks, device)
         flops, nbytes = c["flops"] * n_chunks, c["bytes"] * n_chunks
-        flop_frac = flops / (ms / 1e3) / bench.PEAK_FLOPS if on_card else None
+        flop_frac = flops / (ms / 1e3) / PEAK_FLOPS if on_card else None
         hbm_frac = nbytes / (ms / 1e3) / work.HBM_BPS if on_card else None
         rows[name] = {
             "wall_ms": ms, "clips_per_s": n / (ms / 1e3),
@@ -251,11 +318,10 @@ def roofline(wavs: np.ndarray, chunk: int = CHUNK, device="cuda") -> dict:
             "timer": "cuda events" if on_card else "host clock",
             "gammatone_route_timed": ("B''" if os.environ.get(
                 "TPU_BREATH_PALLAS_GT") == "1" else "B"),
-            "peak_flops": bench.PEAK_FLOPS, "peak_flops_source":
-                bench.PEAK_SOURCE,
+            "peak_flops": PEAK_FLOPS, "peak_flops_source": PEAK_SOURCE,
             "peak_hbm_bytes_s": work.HBM_BPS,
             "peak_hbm_source": work.HBM_SOURCE,
-            "flops_counted": bench.COUNTED, "bytes_counted": BYTES_COUNTED,
+            "flops_counted": COUNTED, "bytes_counted": BYTES_COUNTED,
             "stages": rows}
 
 
@@ -274,7 +340,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> dict:
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
-    wavs, inputs = bench.load_clips(args.n, args.root)
+    wavs, inputs = load_clips(args.n, args.root)
     report = {"inputs": inputs, **roofline(wavs, args.chunk, device)}
     if args.out:
         with open(args.out, "w") as f:

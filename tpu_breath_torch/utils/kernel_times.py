@@ -11,76 +11,44 @@ both): the golden wavs, silence, an impulse, a quantized clip, then seeded
 noise, at B = 8 and 128; and kernel C's dense worst case, a candidate every
 other sample; kernel D (on no path) takes the clips themselves, at the
 shapes of its function (cqt_args); kernel E the clips pre-emphasised, as
-ops/lpc.py gives them. Each kernel and its plain version is
-timed by CUDA events over 20 back-to-back calls after 3 warm-ups, unprimed
+ops/lpc.py gives them. Each kernel and its plain version is timed by
+profiling.device_ms over 20 back-to-back calls after 3 warm-ups, unprimed
 (where the host queues a call more slowly than the card runs it, the host
 sets the pace) and primed (a spin kernel first holds the stream, so the
 card runs the calls back to back: the card's time alone). Copied into the
-package of an earlier checkout, it times that checkout's kernels by the
-same code: to compare two checkouts, run both in one call, alternating.
---compare says, for each kernel and batch, whether two saved outputs are
-bit-equal.
+package of an earlier checkout (with utils/profiling.py where that one has
+no device_ms), it times that checkout's kernels by the same code: to
+compare two checkouts, run both in one call, alternating. --compare says,
+for each kernel and batch, whether two saved outputs are bit-equal.
 """
 from __future__ import annotations
 
 import argparse
-import functools
 import glob
 import json
 import os
 import subprocess
-import time
 
 import numpy as np
 import torch
 
+from tpu_breath_torch.utils.profiling import device_ms
+
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SR = 16000
+LAUNCHES, WARMUP = 20, 3  # the kernel table's timer
 
 
-@functools.lru_cache(maxsize=None)
-def spin_cycles_per_ms() -> float:
-    """The card's clock cycles per ms, from one timed spin kernel."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    torch.cuda._sleep(10_000_000)
-    end.record()
-    end.synchronize()
-    return 10_000_000 / start.elapsed_time(end)
-
-
-def hold_stream(ms: float) -> None:
-    """Queue a spin kernel that holds the current stream for about ms."""
-    torch.cuda._sleep(int(ms * spin_cycles_per_ms()))
-
-
-def cuda_ms(fn, iters: int = 20, warmup: int = 3,
-            primed: bool = False) -> float:
-    """Mean time of fn() in ms over `iters` back-to-back calls, by CUDA
-    events. Unprimed (the kernel table's timer), a call that the host
-    queues more slowly than the card runs it is timed at the host's pace.
-    primed: a spin kernel first holds the stream for longer than the host
-    takes to queue the calls, so the card runs them back to back and the
-    time is the card's alone."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    if primed:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        hold_stream(2e3 * (time.perf_counter() - t0) + 1.0)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+def table_times(run, plain) -> dict:
+    """A kernel's call and its plain version's, each timed by
+    profiling.device_ms over LAUNCHES back-to-back calls after WARMUP,
+    unprimed (the kernel table's `ms`) and primed."""
+    def ms(fn, primed):
+        return device_ms(fn, "cuda", LAUNCHES, warmup=WARMUP,
+                         primed=primed)[0]
+    return {"ms": ms(run, False), "plain_ms": ms(plain, False),
+            "primed_ms": ms(run, True), "plain_primed_ms": ms(plain, True)}
 
 
 def golden() -> list[dict]:
@@ -201,11 +169,7 @@ def measure(kernels=None) -> tuple[dict, dict]:
             torch.cuda.synchronize()
             outputs[f"{k} B={b}"] = (tuple(t.cpu() for t in got)
                                      if isinstance(got, tuple) else got.cpu())
-            times.setdefault(k, {})[b] = {
-                "ms": cuda_ms(run), "plain_ms": cuda_ms(plain),
-                "primed_ms": cuda_ms(run, primed=True),
-                "plain_primed_ms": cuda_ms(plain, primed=True)}
-            t = times[k][b]
+            t = times.setdefault(k, {})[b] = table_times(run, plain)
             print(f"[kernel_times] {k} B={b}: {t['ms']:.4f} ms, plain "
                   f"{t['plain_ms']:.4f} ms; primed {t['primed_ms']:.4f} ms, "
                   f"plain {t['plain_primed_ms']:.4f} ms", flush=True)

@@ -4,6 +4,8 @@ the recorder of the program's own spans and counters, and the CLI's
 
 - span / device_span / count / recording / records / collect: the
   recorder (below);
+- device_ms: the port's one CUDA-event timer (the host clock on the
+  CPU), with hold_stream and spin_cycles_per_ms for its primed form;
 - feature_stages / profile_feature_stages / write_feature_profile: each
   named subgraph of the feature stack timed over chunks of precompute's
   size, slowest first -> feature_stages.json (`precompute --profile DIR`);
@@ -13,12 +15,12 @@ the recorder of the program's own spans and counters, and the CLI's
 - write_train_profile: per-epoch wall time from fit histories ->
   train_profile.json.
 
-Times on the card come from CUDA events around all chunks of a stage; on
-the CPU (device='cpu') from the host clock, and the JSON says which. The
-stages run eagerly (extract_features and its subgraphs), not as the
-captured graph that precompute replays (features.extract_features_compiled):
-a graph replays the whole feature stack at once, so it has no stages to
-time.
+A stage's time is one device_ms round over all its chunks, after one
+warm-up chunk: CUDA events on the card, on the CPU (device='cpu') the
+host clock, and the JSON says which. The stages run eagerly
+(extract_features and its subgraphs), not as the captured graph that
+precompute replays (features.extract_features_compiled): a graph replays
+the whole feature stack at once, so it has no stages to time.
 
 The recorder. The program names what it does with span(name, **attrs):
 fit's epochs and their parts, a train step's issue, Server's staging,
@@ -46,6 +48,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import itertools
 import json
 import os
@@ -263,21 +266,58 @@ def feature_stages() -> dict:
     }
 
 
-def _elapsed_ms(fn, device: torch.device) -> float:
-    """Time of fn() in ms: CUDA events on the card, the host clock on the
-    CPU."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+def device_ms(fn, device, launches: int = 1, rounds: int = 1,
+              warmup: int = 0, primed: bool = False) -> list[float]:
+    """ms a launch of fn, one value a round: `warmup` calls, then `rounds`
+    rounds of `launches` back-to-back calls, each round timed by two CUDA
+    events on the current stream, after one synchronize; on the CPU by the
+    host clock (primed means nothing there). Unprimed, a call that the
+    host queues more slowly than the card runs it is timed at the host's
+    pace. primed: the host's time to queue one round is taken once, then
+    before each round a spin kernel holds the stream for twice that and a
+    ms more, so the card runs the round back to back and the time is the
+    card's alone."""
+    device = torch.device(device)
+    for _ in range(warmup):
         fn()
+    out = []
+    if device.type != "cuda":
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            for _ in range(launches):
+                fn()
+            out.append((time.perf_counter() - t0) * 1e3 / launches)
+        return out
+    torch.cuda.synchronize(device)
+    if primed:
+        t0 = time.perf_counter()
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize(device)
+        hold = 2e3 * (time.perf_counter() - t0) + 1.0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for _ in range(rounds):
+        if primed:
+            hold_stream(hold)
+        start.record()
+        for _ in range(launches):
+            fn()
         end.record()
         end.synchronize()
-        return start.elapsed_time(end)
-    t0 = time.perf_counter()
-    fn()
-    return (time.perf_counter() - t0) * 1e3
+        out.append(start.elapsed_time(end) / launches)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def spin_cycles_per_ms() -> float:
+    """The card's clock cycles per ms, from one timed spin kernel."""
+    return 10_000_000 / device_ms(lambda: torch.cuda._sleep(10_000_000),
+                                  "cuda")[0]
+
+
+def hold_stream(ms: float) -> None:
+    """Queue a spin kernel that holds the current stream for about ms."""
+    torch.cuda._sleep(int(ms * spin_cycles_per_ms()))
 
 
 @torch.no_grad()
@@ -301,7 +341,7 @@ def profile_feature_stages(wavs: np.ndarray, chunk: int = 128,
     for name, f in stages.items():
         with spectral.full_f32():  # as extract_features runs them
             f(x[0])
-            ms = _elapsed_ms(lambda: [f(c) for c in x], device)
+            ms, = device_ms(lambda: [f(c) for c in x], device)
         rows.append({"stage": name, "ms": ms, "ms_per_chunk": ms / n_chunks,
                      "clips_per_s": n_chunks * chunk / (ms / 1e3)})
         print(f"{name:14s} {rows[-1]['clips_per_s']:10.1f} clips/s "

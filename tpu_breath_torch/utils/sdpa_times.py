@@ -7,13 +7,13 @@ For each of flash, memory-efficient and cuDNN attention, in bf16 at 12
 heads of 64 over 62 tokens, Q, K and V laid out as the model hands them
 (views of one [b, N, 3, H, d] projection): the ms of a training call
 (forward and backward at the train batch, 512) and of an evaluation
-forward (1,024), by CUDA events over 20 calls after 3 warm-ups (primed:
-a spin kernel holds the stream first, so the card sets the pace); the
-kernels each launches (one profiled training call); whether two training
-calls give the same gradients bit for bit and a CUDA graph's replay the
-eager call's; and the largest gap of the output from float32 math. A
-backend that cannot take the call records its error. One JSON object on
-stdout (and in --out)."""
+forward (1,024), by profiling.device_ms over 20 calls after 3 warm-ups
+(primed: a spin kernel holds the stream first, so the card sets the
+pace); the kernels each launches (one profiled training call); whether two
+training calls give the same gradients bit for bit and a CUDA graph's
+replay the eager call's; and the largest gap of the output from float32
+math. A backend that cannot take the call records its error. One JSON
+object on stdout (and in --out)."""
 from __future__ import annotations
 
 import argparse
@@ -24,7 +24,8 @@ import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from tpu_breath_torch.models import ast_base
-from tpu_breath_torch.utils.kernel_times import cuda_ms
+from tpu_breath_torch.utils.kernel_times import LAUNCHES, WARMUP
+from tpu_breath_torch.utils.profiling import device_ms
 
 BACKENDS = {"flash": SDPBackend.FLASH_ATTENTION,
             "efficient": SDPBackend.EFFICIENT_ATTENTION,
@@ -71,8 +72,9 @@ def measure(backend: SDPBackend) -> dict:
     with torch.no_grad(), sdpa_kernel(SDPBackend.MATH):
         ref = F.scaled_dot_product_attention(q.float(), k.float(), v.float())
     out["max_abs_vs_f32"] = float((o1.float() - ref).abs().max())
-    out["train_ms"] = cuda_ms(train, primed=True)
-    out["eval_ms"] = cuda_ms(evaluate, primed=True)
+    for key, fn in (("train_ms", train), ("eval_ms", evaluate)):
+        out[key] = device_ms(fn, "cuda", LAUNCHES, warmup=WARMUP,
+                             primed=True)[0]
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
