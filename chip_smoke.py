@@ -23,6 +23,13 @@ no result line):
      conv1d; then the kernels past their main-path tiles
      (check_past_tiles): B, B', B'' at larger T, F, G and K, B'' at
      B = 65,537, A past 28,000 pairs a clip and D at 100,000 samples;
+     last kernel F (a ConvBlock's BatchNorm and activation) at every
+     distinct ConvBlock shape of CNN8 and VGG at B = 512 in bf16: against
+     its plain version in float64, training and evaluation, within
+     kernel_times.bn_act_errors' tolerances (check_bn_act), then primed
+     (kernel_times.bn_act_times) a training forward and backward of the
+     kernels and of the plain version (torch's BatchNorm and activation,
+     so the library's too), and each of its four passes beside its bound;
   4. extract_features on the card for the golden wavs, against the golden
      npz and the port's CPU result; with fused_gt (kernel B'') against the
      default path;
@@ -43,7 +50,8 @@ no result line):
      cached and fused (kernel B), 8 steps from one seeded state each way,
      augmentation on: losses, accuracies, every parameter and buffer,
      both moments and the step count bit-equal, the fused graph
-     holding A 8 / B 4 / C 4 / E 4; (ii) in turns: ms a step (CUDA
+     holding A 8 / B 4 / C 4 / E 4, every graph F 56 (CNN8) or 72 (VGG);
+     (ii) in turns: ms a step (CUDA
      events), the
      host's ms to queue one, one traced step (kernels, host launches,
      busy share; a replay's kernels inside its train_step range), an
@@ -85,12 +93,13 @@ no result line):
      cnn8,vgg 6 epochs again equals phase 6 bit for bit; train --fused
      cnn8,vgg twice, equal; a 7-epoch cnn8 run stopped at its 4th epoch
      line and resumed equals an uninterrupted one; --seed 1 differs from
-     seed 0; A/B''/C/E launched 384/192/192/192 times;
+     seed 0; A/B''/C/E launched 384/192/192/192 times, F as many times
+     as the runs' steps and evaluations ask (fit_f_launches);
   7. fused: the features inside one fused step against the cache's rows
      (equal), then train --archs cnn8,vgg --epochs 6 from the cache and
      train --fused ... --predict with TPU_BREATH_PALLAS_GT=1, cuDNN flags
      at their defaults: equal histories, A/B''/C/E launched 192/96/96/96
-     times, a submission;
+     times, F as the fits and the prediction ask, a submission;
   mesh. data parallelism (parallel/mesh.py): (i) one NCCL rank in this
      process, where the mesh's programs replay CUDA graphs: the streamed
      step programs graphed against eager, 8 steps of CNN8 and VGG,
@@ -159,7 +168,10 @@ import torch
 from tpu_breath_torch.graphs import add_launches, read_launches
 from tpu_breath_torch.ops.cuda import work as work_lib
 from tpu_breath_torch.utils.kernel_times import calls as kernel_calls
-from tpu_breath_torch.utils.kernel_times import (LAUNCHES, WARMUP, clip_set,
+from tpu_breath_torch.utils.kernel_times import (LAUNCHES, WARMUP,
+                                                 bn_act_errors,
+                                                 bn_act_inputs, bn_act_times,
+                                                 clip_set, convblock_shapes,
                                                  cqt_args, dense_scores,
                                                  golden, kernel_inputs,
                                                  table_times)
@@ -403,7 +415,39 @@ def phase_kernels() -> dict:
             f"bit-equal at B = {MICRO} and B = {CHUNK}")
     check_long_rows(40_000)
     check_past_tiles()
+    res["F errors"] = check_bn_act()
+    res["F"] = bn_act_times()
     return res
+
+
+def check_bn_act() -> list[dict]:
+    """Kernel F against its plain version in float64
+    (kernel_times.bn_act_errors, its tolerances) at every distinct
+    ConvBlock shape of CNN8 and VGG at B = STEP_BATCH in bf16, the main
+    path's, training and evaluation: a row of each output's max abs error
+    a shape and mode; raises past a tolerance."""
+    rows = []
+    for c, h, w, order, cb in sorted({s for a in STEP_KEYS
+                                      for s in convblock_shapes(a)}):
+        v = bn_act_inputs(c, h, w, STEP_BATCH, torch.bfloat16, cb,
+                          seed=c * h + 1)
+        for training in (True, False):
+            errors = bn_act_errors(v, order, training)
+            name = (f"F {STEP_BATCH}x{c}x{h}x{w} {order} "
+                    f"{'training' if training else 'evaluation'}")
+            log(f"[kernels] {name} vs plain (float64): " + ", ".join(
+                f"{k} {e:.3g} ({100 * q:.0f}% of tol)"
+                for k, (e, q) in errors.items()))
+            if max(q for _, q in errors.values()) > 1:
+                raise AssertionError(f"kernel {name}: past its tolerance "
+                                     f"against its plain version: {errors}")
+            rows.append({"shape": [STEP_BATCH, c, h, w], "order": order,
+                         "training": training,
+                         "max_abs_err": {k: e for k, (e, _) in
+                                         errors.items()}})
+        del v
+        torch.cuda.empty_cache()
+    return rows
 
 
 def check_past_tiles() -> None:
@@ -838,6 +882,21 @@ def _busy_shares(server, eager_serve) -> dict:
 
 
 STEP_KEYS = ("cnn8", "vgg")
+# kernel F's launches in one training step: 3 forward and 3 backward a
+# ConvBlock, one more with CNN8's conv bias (ops/cuda/bn_act_kernel.py);
+# in an evaluation forward one a ConvBlock
+F_A_STEP = {"cnn8": 8 * 7, "vgg": 12 * 6}
+F_BLOCKS = {"cnn8": 8, "vgg": 12}
+FIT_STEPS = 2  # steps an epoch on make_dataset's 1,024-clip training split
+
+
+def fit_f_launches(arch: str, epochs: int, predicts: int = 0) -> int:
+    """Kernel F's launches of a fit of `arch` on the card over `epochs`
+    epochs (FIT_STEPS steps each, one evaluation forward each and its
+    Predictor's warm call), then `predicts` predictions of <= 1,024 clips
+    (a new Predictor each: its warm call and one replay)."""
+    return (epochs * FIT_STEPS * F_A_STEP[arch]
+            + (epochs + 1 + 2 * predicts) * F_BLOCKS[arch])
 
 
 def _state(model, opt) -> dict:
@@ -981,7 +1040,7 @@ def phase_steps(smi: str) -> dict:
                     f"bit-equal{'' if not diff else f'; max |diff| {diff}'};"
                     f" graph launches a replay {graph.launches}")
                 want = ({"A": 8, "B": 4, "C": 4, "E": 4} if mode == "fused"
-                        else {})
+                        else {}) | {"F": F_A_STEP[arch]}
                 if not (row["losses_equal"] and row["accs_equal"]
                         and not diff) or {k: v for k, v in
                                           graph.launches.items() if v} != want:
@@ -1214,7 +1273,7 @@ def phase_serve(tmp: str) -> dict:
     launches = read_launches()
     log(f"[serve] predict --from-wav ({len(paths)} clips) in {serve_s:.2f} s "
         f"(first call, includes model load); launches {launches}")
-    if min(launches[k] for k in ("A", "B", "C", "E")) <= 0:
+    if min(launches[k] for k in ("A", "B", "C", "E", "F")) <= 0:
         raise AssertionError(f"a kernel was not launched: {launches}")
     lines = [l.split("\t") for l in out.getvalue().splitlines() if "\t" in l]
     probs = np.array([float(p) for _, _, p in lines])
@@ -1645,7 +1704,8 @@ def phase_repro(tmp: str, e2e: dict) -> dict:
     epochs equal an uninterrupted 7-epoch run's; (d) --seed 1 cnn8,vgg:
     each history differs from seed 0's (phase 6). Logs the largest |diff|
     per key of every comparison, then raises if one failed. A, B'' and C
-    launch 384 / 192 / 192 times (the two fused runs)."""
+    launch 384 / 192 / 192 times (the two fused runs), F as the fits'
+    steps and evaluations ask (fit_f_launches)."""
     from tpu_breath_torch import cli
 
     root = os.path.join(tmp, "input")
@@ -1703,11 +1763,16 @@ def phase_repro(tmp: str, e2e: dict) -> dict:
                       if r["epoch"] >= first], True)
 
     launches = read_launches()
+    # F: 4 runs of both models 6 epochs (again, fused twice, seed 1), cnn8
+    # 7 epochs, 4 until the stop, and the resumed epochs
     want = {"A": 384, "B": 0, "B'": 0, "B''": 192, "C": 192, "D": 0,
-            "E": 192}
+            "E": 192, "F": 4 * (fit_f_launches("cnn8", 6)
+                                + fit_f_launches("vgg", 6))
+            + fit_f_launches("cnn8", 7) + fit_f_launches("cnn8", 4)
+            + fit_f_launches("cnn8", len(resumed))}
     seconds = time.perf_counter() - t0
-    log(f"[repro] launches {launches} (expected {want}: 2 fused runs); "
-        f"phase {seconds:.1f} s")
+    log(f"[repro] launches {launches} (expected {want}: A-E 2 fused runs, "
+        f"F every run); phase {seconds:.1f} s")
     if failed:
         raise AssertionError(f"repro: {failed}")
     if launches != want:
@@ -1772,9 +1837,11 @@ def phase_fused(tmp: str) -> dict:
                                      *common, "--out-root", fused_out])
         res["launches"] = read_launches()
     want = {"A": 192, "B": 0, "B'": 0, "B''": 96, "C": 96, "D": 0,
-            "E": 96}
+            "E": 96, "F": sum(fit_f_launches(a, 6, predicts=1)
+                              for a in STEP_KEYS)}
     log(f"[fused] launches over train --fused {res['launches']} (expected "
-        f"{want}: 6 epochs x 2 steps x 4 chunks x 2 archs)")
+        f"{want}: 6 epochs x 2 steps x 4 chunks x 2 archs; F the fits and "
+        f"the prediction)")
     if res["launches"] != want:
         raise AssertionError("fused launches differ from the expected")
     worst = {"train_loss": 0.0, "val_acc": 0.0}
@@ -2025,7 +2092,8 @@ def mesh_steps(mesh, smi: str) -> dict:
     and fused (kernel B), two programs from one seeded state run 8 steps
     each on the same batches, augmentation on: losses, accuracies, every
     parameter and buffer, both moments and the step count bit-equal, the
-    fused graph holding A 8 / B 4 / C 4 / E 4. Then for CNN8, cached and
+    fused graph holding A 8 / B 4 / C 4 / E 4, every graph F 56 or 72.
+    Then for CNN8, cached and
     fused, in turns (eager, graph, graph, eager): ms a step (CUDA events
     over 8 streamed steps, the loader included), the host's ms to issue a
     step's call, one traced step (kernels, host launches, busy share)."""
@@ -2072,7 +2140,8 @@ def mesh_steps(mesh, smi: str) -> dict:
                     f"launches a replay {graph.launches}; capture (warm step "
                     f"included) {graph.capture_s:.2f} s, pool "
                     f"{graph.pool_bytes / 2**20:.0f} MiB")
-                want = {"A": 8, "B": 4, "C": 4, "E": 4} if fused else {}
+                want = ({"A": 8, "B": 4, "C": 4, "E": 4} if fused
+                        else {}) | {"F": F_A_STEP[arch]}
                 if not (le == lg and ae == ag and not diff) or {
                         k: v for k, v in graph.launches.items() if v} != want:
                     failed.append(name)
@@ -2761,6 +2830,36 @@ def main(argv: list[str] | None = None) -> int:
                 else None,
                 "batch": CHUNK}
                for k, name, f, rep in table]
+    # F at batch 512 (the training step's), primed, by model: a training
+    # forward and backward summed over its ConvBlocks (launches once, of
+    # both models' blocks on every path); the worst error of
+    # each output against the plain version (float64) over all shapes,
+    # training and evaluation. The plain version is torch's BatchNorm and
+    # activation, so its time is the library's too
+    def model_row(arch: str) -> dict:
+        rows = [next(r for r in ker["F"] if tuple(r["shape"][1:]) == s[:3]
+                     and r["order"] == s[3]) for s in convblock_shapes(arch)]
+        row = {k: sum(r[k] for r in rows)
+               for k in ("ms", "plain_ms", "bound_ms")}
+        row["primed_ms"], row["library_ms"] = row["ms"], row["plain_ms"]
+        row["passes"] = {
+            p: {k: sum(r["passes"][p][k] for r in rows)
+                for k in ("ms", "bound_ms")}
+            for p in ("stats", "apply", "reduce", "elemt")}
+        return row
+
+    by_model = {a: model_row(a) for a in STEP_KEYS}
+    worst: dict = {}
+    for r in ker["F errors"]:
+        for k, e in r["max_abs_err"].items():
+            worst[k] = max(worst.get(k, 0.0), e)
+    kernels.append({
+        "name": "bn_act", "route": "cuda",
+        "source": f"{src}/bn_act_kernel.cu", "replaces": None,
+        "launches": sum(p["F"] for p in paths.values()),
+        "launches_by_path": {n: p["F"] for n, p in paths.items()},
+        "max_abs_err": worst, "bound_by": "bytes", "by_model": by_model,
+        "batch": STEP_BATCH})
     print(env["smi"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

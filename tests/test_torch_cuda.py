@@ -548,13 +548,14 @@ def _captured_node_types(call) -> list[int]:
     return types
 
 
-@pytest.mark.parametrize("kernel", ["A", "B''", "C", "B", "B'", "D", "E"])
+@pytest.mark.parametrize("kernel", ["A", "B''", "C", "B", "B'", "D", "E",
+                                    "F"])
 def test_wrapper_call_is_one_kernel_launch(clips, kernel):
     """One call of kernel A's, B'''s, C's, B's, B''s, D's or E's wrapper on
-    CUDA tensors runs one kernel on the card and nothing else: a CUDA graph
-    captured from a warm call holds one node, a kernel, and the wrapper's
-    launch count went up by one (its kernel). Its outputs are allocated,
-    not converted."""
+    CUDA tensors, or of F's evaluation forward, runs one kernel on the card
+    and nothing else: a CUDA graph captured from a warm call holds one
+    node, a kernel, and the wrapper's launch count went up by one (its
+    kernel). Its outputs are allocated, not converted."""
     from tpu_breath_torch.config import DEFAULT_FEATURES as SPEC
     from tpu_breath_torch.ops import chroma, spectral
     from tpu_breath_torch.ops.cuda import cqt_kernel as ck
@@ -594,6 +595,16 @@ def test_wrapper_call_is_one_kernel_launch(clips, kernel):
         args = lpc.lpc_args(clips, 16000)
         call = lambda: lk.lpc_frames(*args, SPEC.n_lpc)
         count = lambda: lk.LAUNCHES
+    elif kernel == "F":
+        from tpu_breath_torch.ops.cuda import bn_act_kernel as fk
+        from tpu_breath_torch.utils import kernel_times
+
+        v = kernel_times.bn_act_inputs(64, 32, 16, 8, torch.bfloat16, False,
+                                       seed=1)
+        call = lambda: fk.bn_act(v["x"], None, v["weight"], v["bias"],
+                                 v["running_mean"], v["running_var"],
+                                 "bn_gelu", False)
+        count = lambda: fk.LAUNCHES
     else:
         mag = spectral.stft_mag_cr(clips, 512, 256).contiguous()
         fb = spectral.device_const(spectral.mel_matrix, 16000, 512, 64,
@@ -1187,7 +1198,10 @@ def test_train_step_body_runs_channels_last(clips, arch):
     """A captured cached TrainStep (batch 8, augmentation and dropout on)
     of each model, one replay under torch.profiler: the body runs
     channels-last on the card, so no cuDNN NCHW<->NHWC transpose kernel
-    runs and torch's BatchNorm kernels are its channels-last ones, but for
+    runs; every ConvBlock's BatchNorm and activation is kernel F (a replay
+    runs each of its six kernels once a block, the sums kernel twice with
+    CNN8's conv bias); torch's BatchNorm kernels (the MLPs' 2-D ones and
+    VGG's residual one) are its channels-last ones, but for
     one 2-D BatchNorm of CNN8: its scalar MLP ends in ReLU -> BatchNorm
     with no dropout, so that layer's gradient is the strided column slice
     the concatenation's backward hands back, which torch reduces with its
@@ -1242,6 +1256,12 @@ def test_train_step_body_runs_channels_last(clips, arch):
     strided = {"cnn8": 1, "vgg": 0}[arch]
     assert {k: v for k, v in bn.items() if "channels_last" not in k} == (
         {"batch_norm_backward_reduce_kernel": strided} if strided else {}), bn
+    blocks, conv_bias = {"cnn8": (8, 1), "vgg": (12, 0)}[arch]
+    fused = collections.Counter(m.group(1) for m in (re.search(
+        r"\bbn_act_(\w+?)_kernel\b", n) for n in names) if m)
+    assert fused == {"stats": blocks, "merge": blocks, "apply": blocks,
+                     "reduce": blocks, "sums": blocks * (1 + conv_bias),
+                     "elemt": blocks}, fused
     assert all(torch.equal(first[k], second[k]) for k in first)
 
 

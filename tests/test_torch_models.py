@@ -253,8 +253,10 @@ def _layout_run(model, f, s, train, bns):
     """A copy of model (in train or eval mode) on f, s: its logits, every
     parameter's gradient of the training loss, the (channels-last,
     NCHW-contiguous) flags of each ConvBlock output and of its gradient,
-    and for each BatchNorm named in bns (module, input, running mean and
-    var before the call)."""
+    and for each module named in bns, a ConvBlock or a BatchNorm, (its
+    BatchNorm, the BatchNorm's input in float64, running mean and var
+    before the call). A ConvBlock's BatchNorm takes the convolution's
+    output with its bias, after the ReLU for "relu_bn"."""
     import copy
 
     from tpu_breath_torch.train.loop import bce_with_logits
@@ -270,13 +272,22 @@ def _layout_run(model, f, s, train, bns):
         layouts.append(flags(o))
         o.register_hook(lambda g: layouts.append(flags(g)))
 
+    def bn_input(mod, x):
+        if isinstance(mod, BatchNorm):
+            return mod, x.detach().double()
+        with torch.no_grad():
+            t = mod.conv(x.detach())
+        return mod.bn, (torch.relu(t) if mod.order == "relu_bn"
+                        else t).double()
+
+    def record(mod, i):
+        bn, x = bn_input(mod, i[0])
+        seen.append((bn, x, bn.running_mean.clone(), bn.running_var.clone()))
+
     for block in m.convs:
         block.register_forward_hook(keep)
     for name in bns:
-        m.get_submodule(name).register_forward_pre_hook(
-            lambda b, i: seen.append((b, i[0].detach().double(),
-                                      b.running_mean.clone(),
-                                      b.running_var.clone())))
+        m.get_submodule(name).register_forward_pre_hook(record)
     torch.manual_seed(0)  # the same dropout draws in every run
     logits = m(f, s)
     bce_with_logits(logits, (torch.arange(len(f)) % 2).float()).backward()
@@ -291,8 +302,8 @@ def test_body_keeps_channels_last(arch, train):
     here; Classifier.forward re-lays them out on CUDA only), against the
     NCHW run: every ConvBlock's output and its gradient stay channels-last
     (the NCHW run's stay NCHW: the CPU path is unchanged), so each
-    BatchNorm's backward takes its channels-last kernels on the card; the
-    f32 logits agree within 1e-4, each image BatchNorm's running
+    ConvBlock's BatchNorm backward takes kernel F on the card; the f32
+    logits agree within 1e-4, each image BatchNorm's running
     statistics are Flax's update from its biased batch statistics (train)
     or untouched (eval), and every parameter's gradient of the training
     loss agrees within 1e-4 with the body in float64 (the head and VGG's
@@ -306,9 +317,8 @@ def test_body_keeps_channels_last(arch, train):
     f = torch.randn(4, 9, 40, 21, generator=g)
     s = torch.randn(4, 36, generator=g)
     model = registry.build(arch, 36, seed=1)
-    bns = [n for n, m in model.named_modules()
-           if isinstance(m, BatchNorm) and (n.startswith("convs.")
-                                            or n == "res_bn")]
+    bns = [f"convs.{i}" for i in range(len(model.convs))] + (
+        ["res_bn"] if hasattr(model, "res_bn") else [])
     cl = torch.channels_last
 
     ref, _, ref_layouts, _ = _layout_run(model, f, s, train, [])

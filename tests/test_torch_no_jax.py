@@ -36,7 +36,8 @@ MODULES = {
     "data.wav", "models", "models.ast_base", "models.cnn8", "models.convert",
     "models.layers",
     "models.registry", "models.vgg", "ops", "ops.cepstral", "ops.chroma",
-    "ops.cqt", "ops.cuda", "ops.cuda._build", "ops.cuda.cqt_kernel",
+    "ops.cqt", "ops.cuda", "ops.cuda._build", "ops.cuda.bn_act_kernel",
+    "ops.cuda.cqt_kernel",
     "ops.cuda.epilogue_kernel",
     "ops.cuda.gammatone_kernel", "ops.cuda.lpc_kernel",
     "ops.cuda.peaks_kernel", "ops.cuda.tuning_kernel", "ops.cuda.work",

@@ -32,16 +32,18 @@ from tpu_breath_torch.utils import profiling
 
 def kernel_counters() -> dict:
     """kernel -> (wrapper module, name of its launch counter)."""
-    from tpu_breath_torch.ops.cuda import (cqt_kernel, epilogue_kernel,
-                                           gammatone_kernel, lpc_kernel,
-                                           peaks_kernel, tuning_kernel)
+    from tpu_breath_torch.ops.cuda import (bn_act_kernel, cqt_kernel,
+                                           epilogue_kernel, gammatone_kernel,
+                                           lpc_kernel, peaks_kernel,
+                                           tuning_kernel)
     return {"A": (tuning_kernel, "LAUNCHES"),
             "B": (epilogue_kernel, "LAUNCHES"),
             "B'": (epilogue_kernel, "LAUNCHES_F32"),
             "B''": (gammatone_kernel, "LAUNCHES"),
             "C": (peaks_kernel, "LAUNCHES"),
             "D": (cqt_kernel, "LAUNCHES"),
-            "E": (lpc_kernel, "LAUNCHES")}
+            "E": (lpc_kernel, "LAUNCHES"),
+            "F": (bn_act_kernel, "LAUNCHES")}
 
 
 def read_launches() -> dict:

@@ -14,7 +14,9 @@ under a sharded jit: BatchNorm's statistics and their gradient sums are
 all-reduced over the ranks (global_batch_norm), and Dropout / Dropout2d
 draw their masks for the global batch, each rank keeping its rows. Without
 a mesh, or with one rank, they are nn.BatchNorm2d's, nn.Dropout's and
-nn.Dropout2d's own code.
+nn.Dropout2d's own code, but for a ConvBlock's BatchNorm: its conv bias,
+BatchNorm and activation are one call of ops/cuda/bn_act_kernel.bn_act
+(kernel F on the card, its plain version on the CPU).
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpu_breath_torch.ops.cuda import bn_act_kernel
 from tpu_breath_torch.parallel import mesh as mesh_lib
 
 BN_EPS = 1e-5
@@ -110,22 +113,34 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         self._check_input_dim(x)
-        if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
-        if _spread(self.mesh):
+        if self.training and _spread(self.mesh):
             return global_batch_norm(self, x)
-        n = x.numel() // x.shape[1]
-        old = self.running_var * FLAX_MOMENTUM
-        # a copy: autograd keeps the tensor F.batch_norm updated
-        var = self.running_var.clone()
-        out = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
-                           True, self.momentum, self.eps)
-        with torch.no_grad():
-            # F.batch_norm folded in momentum * var * n / (n - 1); take the
-            # Bessel factor back out of the new share
-            self.running_var.copy_((var - old) * ((n - 1) / n) + old)
-        return out
+        return batch_norm(x, self.weight, self.bias, self.running_mean,
+                          self.running_var, self.training, self.momentum,
+                          self.eps)
+
+
+def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               running_mean: torch.Tensor, running_var: torch.Tensor,
+               training: bool, momentum: float, eps: float) -> torch.Tensor:
+    """F.batch_norm with Flax's running statistics (BatchNorm's own code):
+    training normalises with the batch's biased statistics and updates
+    running_mean and running_var in place by momentum * (the batch's mean,
+    its biased variance); evaluation takes the running statistics."""
+    if not training:
+        return F.batch_norm(x, running_mean, running_var, weight, bias,
+                            False, 0.0, eps)
+    n = x.numel() // x.shape[1]
+    old = running_var * (1 - momentum)
+    # a copy: autograd keeps the tensor F.batch_norm updated
+    var = running_var.clone()
+    out = F.batch_norm(x, running_mean, var, weight, bias, True, momentum,
+                       eps)
+    with torch.no_grad():
+        # F.batch_norm folded in momentum * var * n / (n - 1); take the
+        # Bessel factor back out of the new share
+        running_var.copy_((var - old) * ((n - 1) / n) + old)
+    return out
 
 
 class _GlobalDropout:
@@ -173,7 +188,8 @@ def set_mesh(model: nn.Module, mesh) -> None:
             m.mesh = mesh
 
 
-def _act_bn(x: torch.Tensor, bn: BatchNorm, order: str) -> torch.Tensor:
+def _act_bn(x: torch.Tensor, bn, order: str) -> torch.Tensor:
+    """The activation and bn (a BatchNorm, or a function of x) in order."""
     if order == "relu_bn":
         return bn(torch.relu(x))
     return F.gelu(bn(x), approximate="none")
@@ -181,7 +197,14 @@ def _act_bn(x: torch.Tensor, bn: BatchNorm, order: str) -> torch.Tensor:
 
 class ConvBlock(nn.Module):
     """Conv3x3 (padding 1, optional stride) then ReLU -> BN ("relu_bn",
-    CNN8) or BN -> exact GELU ("bn_gelu", VGG)."""
+    CNN8) or BN -> exact GELU ("bn_gelu", VGG).
+
+    The convolution runs without its bias, and the bias, the activation and
+    the BatchNorm (with Flax's running statistics) are one call of
+    bn_act_kernel.bn_act: kernel F on the card, its plain version on the
+    CPU. Under a mesh of more than one rank the block is the convolution
+    and _act_bn (the BatchNorm's global_batch_norm). The parameters and
+    state-dict keys are nn.Conv2d's and BatchNorm's either way."""
 
     def __init__(self, in_features: int, features: int, strides: int = 1,
                  order: str = "relu_bn", use_bias: bool = True):
@@ -194,7 +217,15 @@ class ConvBlock(nn.Module):
         self.bn = BatchNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _act_bn(self.conv(x), self.bn, self.order)
+        bn = self.bn
+        if _spread(bn.mesh):
+            return _act_bn(self.conv(x), bn, self.order)
+        y = F.conv2d(x, self.conv.weight, None, self.conv.stride,
+                     self.conv.padding)
+        return bn_act_kernel.bn_act(y, self.conv.bias, bn.weight, bn.bias,
+                                    bn.running_mean, bn.running_var,
+                                    self.order, bn.training, bn.momentum,
+                                    bn.eps)
 
 
 class MLPBlock(nn.Module):

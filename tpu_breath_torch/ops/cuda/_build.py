@@ -26,6 +26,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 # C entry point -> argument types (all return a cudaError_t as int)
 SIGNATURES = {
     "tuning_index_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -36,6 +38,17 @@ SIGNATURES = {
     "cqt_mag_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                        _P],
     "burg_lpc_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "bn_act_stats_launch": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
+    "bn_act_merge_launch": [_P, _P, _L, _I, _I, _P, _P, _P, _P, _F, _F,
+                            _P],
+    "bn_act_apply_launch": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _I,
+                            _I, _P],
+    "bn_act_reduce_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I,
+                             _I, _F, _I, _I, _P],
+    "bn_act_sums_launch": [_P, _P, _L, _I, _I, _P, _F, _I, _P, _P, _P, _P,
+                           _P],
+    "bn_act_elemt_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
+                            _I, _I, _F, _I, _I, _P],
 }
 
 

@@ -1,9 +1,10 @@
 """The least work of each CUDA kernel as a function of its shapes: the bytes
 it must move (each input read once, each output written once, all f32 but
-A's int32 index) and the operations it must do, beside the H100's peak rate
-for each. chip_smoke.py's bound (the kernel table's `bound_ms`) and the
-feature roofline (utils/feature_roofline.py, which counts a kernel's call by
-this model, not by its plain version's steps) both read it.
+A's int32 index and F's activations) and the operations it must do, beside
+the H100's peak rate for each. chip_smoke.py's bound (the kernel table's
+`bound_ms`), utils/kernel_times.py's kernel F rows and the feature roofline
+(utils/feature_roofline.py, which counts a kernel's call by this model, not
+by its plain version's steps) read it.
 """
 from __future__ import annotations
 
@@ -81,6 +82,25 @@ def lpc(b: int, n: int, frame: int, n_frames: int, order: int) -> Work:
         ops += 6 * m + 2 + 2 * (i + 1) + (4 * m if i + 1 < order else 0)
     return Work(b * n * 4 + frame * 8 + b * order * n_frames * 4,
                 b * n_frames * ops, F64_CUDA_FLOPS)
+
+
+def bn_act(m: int, c: int, itemsize: int, part: str, order: str,
+           conv_bias: bool) -> Work:
+    """Kernel F, one pass over m rows of c channels of `itemsize` bytes:
+    "stats" reads x (the batch's statistics), "apply" reads x and writes z,
+    "reduce" reads dz and x (the backward's two sums), "elemt" reads dz and
+    x and writes dx; besides, the f32 [c] vectors each reads or writes once
+    (the conv bias if any, the statistics, gamma, beta, the sums, the
+    coefficients). Operations a value: the f32 arithmetic of the formulas,
+    erf and exp one each (the derivative of GELU 13, Welford's update 5)."""
+    gelu, relu = order == "bn_gelu", order == "relu_bn"
+    values = {"stats": 1, "apply": 2, "reduce": 2, "elemt": 3}[part]
+    vectors = {"stats": 2, "apply": 4, "reduce": 6, "elemt": 6}[part]
+    vectors += conv_bias * (2 if part == "elemt" else 1)
+    ops = {"stats": 6, "apply": 4 + 5 * gelu, "reduce": 5 + 13 * gelu,
+           "elemt": 7 + 13 * gelu + conv_bias}[part] + relu
+    return Work(values * m * c * itemsize + vectors * c * 4, ops * m * c,
+                F32_FLOPS)
 
 
 def cqt(b: int, n: int, sr: int, hop: int, fmin: float, n_bins: int,
